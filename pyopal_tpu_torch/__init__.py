@@ -1,0 +1,50 @@
+"""pyopal_tpu_torch — the PyTorch and CUDA port of `pyopal_tpu`.
+
+A database-search aligner with the capabilities of PyOpal/Opal: one
+query (or a batch) scored against every sequence of a database with four
+affine-gap DP algorithms — Smith-Waterman local (``sw``),
+Needleman-Wunsch global (``nw``) and two semi-global variants (``hw``,
+``ov``) — in score and score+end modes.  Port of ``pyopal_tpu/__init__.py``
+with the same public names, except the FASTA/database I/O of
+``pyopal_tpu/io.py``, which is not ported yet.
+
+The searches run on an NVIDIA GPU through two hand-written CUDA kernels
+(``csrc/ragged.cu``, ``csrc/q8.cu``), built with ``nvcc`` at first use.
+``device="cpu"`` runs the same dispatch with the kernels' plain PyTorch
+versions instead.  The package imports PyTorch and numpy only.
+
+Example:
+    >>> import pyopal_tpu_torch
+    >>> targets = ["AACCGCTG", "ATGCGCT", "TTATTACG"]
+    >>> hits = pyopal_tpu_torch.align(
+    ...     "ACCTG", targets, gap_open=2, ordered=True, device="cpu"
+    ... )
+    >>> for res in hits:
+    ...     print(res.score, targets[res.target_index])
+    41 AACCGCTG
+    31 ATGCGCT
+    23 TTATTACG
+
+"""
+
+__version__ = "0.5.1"
+__all__ = [
+    "Alphabet",
+    "Aligner",
+    "AlignFuture",
+    "BaseDatabase",
+    "Database",
+    "ScoreResult",
+    "EndResult",
+    "FullResult",
+    "ScoringMatrix",
+    "align",
+    "__version__",
+]
+
+from ._align import align
+from .aligner import Aligner, AlignFuture
+from .alphabet import Alphabet
+from .database import BaseDatabase, Database
+from .matrices import ScoringMatrix
+from .results import EndResult, FullResult, ScoreResult

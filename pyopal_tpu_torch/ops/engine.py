@@ -1,0 +1,460 @@
+"""Search dispatcher: packs the database slice and runs the kernels.
+
+Port of the score/end part of ``pyopal_tpu/ops/engine.py``:
+`search_scores_batch` (l.577), `search_scores`, `search` (l.995),
+`plan_tier_launches` (l.271) with its constants, the cohort dispatch
+(`_search_batch_pallas`, l.347, here `_search_batch_kernels`), the
+result assembly (`_assemble_flat*`), `_empty_query_results`,
+`_fp32_exact_domain` and the profile cache.
+
+Routing is decided before any launch and never after a failure:
+
+- calls inside the reference's kernel predicate (matrix entries within
+  +-256, the exact-value domain of `_fp32_exact_domain`, an alphabet of
+  at most 31 letters, queries of 1..4096 residues) take the kernels:
+  full groups of 8 same-tier queries (tiers 64-512) the q8 kernel, the
+  rest the ragged kernel, exactly as `plan_tier_launches` splits them
+  in both packages.  On CUDA these are the hand-written kernels; on the
+  CPU the same dispatch runs their plain versions.
+- everything else takes the int32 column sweep (`ops.sweep`), on the
+  same device: empty queries get `_empty_query_results`.  The reference
+  sends long queries and 32-letter alphabets to kernels not ported yet
+  (``pallas_ragged_long``, the v1 ragged kernels).
+
+Results are assembled into global target order on the device and come
+back to the host in one copy per launch.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from ..results import build_end_results, build_score_results
+from . import packing, q8, ragged, sweep
+
+
+def _flat_device(fp: packing.FlatPacked, device: torch.device):
+    """Device tensors of a flat pack, cached on the pack per device."""
+    cache = fp.__dict__.setdefault("_dev", {})
+    key = str(device)
+    dev = cache.get(key)
+    if dev is None:
+        dev = tuple(
+            torch.as_tensor(np.ascontiguousarray(a)).to(device)
+            for a in (
+                fp.flat_targets,
+                fp.lengths,
+                fp.block_of_step,
+                fp.chunk_of_step,
+                fp.last_of_step,
+                fp.inv_pos.astype(np.int64),
+            )
+        )
+        cache[key] = dev
+    return dev
+
+
+def _slice_maxlen(database, start, end) -> int:
+    """Longest target in ``database[start:end)``, memoized on the
+    database mutation version."""
+    cache_d = getattr(database, "_pack_cache", None)
+    key = (database.get_version(), start, end)
+    side = getattr(database, "_tmax_cache", None)
+    if side is None and cache_d is not None:
+        side = database.__dict__.setdefault("_tmax_cache", {})
+    if side is not None:
+        hit = side.get(key)
+        if hit is not None:
+            return hit
+    lengths = database.get_lengths()
+    t_max = int(max((lengths[i] for i in range(start, end)), default=0))
+    if side is not None:
+        if len(side) > 1024:
+            side.clear()
+        side[key] = t_max
+    return t_max
+
+
+def _assemble_flat(inv_pos, s, qe, te, with_ends):
+    """Reorder ragged-kernel outputs ``(n_q, n_blocks, lanes)`` into
+    global target order."""
+    nq = s.shape[0]
+
+    def one(x):
+        return x.reshape(nq, -1).index_select(1, inv_pos)
+
+    scores = one(s)
+    if not with_ends:
+        return scores
+    return torch.stack([scores, one(qe), one(te)], dim=1)
+
+
+def _assemble_flat_q8(inv_pos, s, qe, te, with_ends):
+    """Reorder q8-kernel outputs ``(n_g, n_blocks, QB, lanes)`` into
+    per-slot rows in global target order (row = g * QB + qb; padding
+    slots are skipped by the caller)."""
+    n_g, n_blocks, qb, lanes = s.shape
+
+    def one(x):
+        flat = x.permute(0, 2, 1, 3).reshape(n_g * qb, -1)
+        return flat.index_select(1, inv_pos)
+
+    scores = one(s)
+    if not with_ends:
+        return scores
+    return torch.stack([scores, one(qe), one(te)], dim=1)
+
+
+# --- query profile memoization ---------------------------------------------
+
+_PROFILE_CACHE: dict = {}
+_PROFILE_CACHE_MAX = 64
+# align(threads>=2) runs engine code from ThreadPool workers holding
+# only the shared read lock; cache mutation needs its own guard
+_PROFILE_CACHE_LOCK = threading.Lock()
+
+
+def _cached(key, make):
+    with _PROFILE_CACHE_LOCK:
+        hit = _PROFILE_CACHE.get(key)
+    if hit is not None:
+        return hit
+    out = make()
+    with _PROFILE_CACHE_LOCK:
+        while len(_PROFILE_CACHE) >= _PROFILE_CACHE_MAX:
+            _PROFILE_CACHE.pop(next(iter(_PROFILE_CACHE)))
+        _PROFILE_CACHE[key] = out
+    return out
+
+
+def _profiles_for_cohort(cohort, matrix, device):
+    """Device-resident stacked profiles + query lengths, memoized."""
+    key = (
+        str(device),
+        b"".join(q.tobytes() + b"\xff" for q in cohort),
+        matrix.tobytes(),
+    )
+
+    def make():
+        profs = ragged.make_profiles_host(cohort, matrix)
+        qlens = np.array([len(q) for q in cohort], np.int32)
+        return (
+            torch.as_tensor(profs).to(device),
+            torch.as_tensor(qlens).to(device),
+        )
+
+    return _cached(key, make)
+
+
+def _profiles_q8(queries_enc, matrix, groups, lanes, device):
+    """Device-resident q8 profile stack (+qv/maxq), memoized."""
+    key = (
+        "q8",
+        str(device),
+        lanes,
+        b"".join(
+            queries_enc[i].tobytes() + b"\xff" for g in groups for i in g
+        ),
+        matrix.tobytes(),
+    )
+
+    def make():
+        arrays = q8.make_profiles_q8_host(
+            queries_enc, matrix, groups, lanes=lanes
+        )
+        return tuple(torch.as_tensor(a).to(device) for a in arrays)
+
+    return _cached(key, make)
+
+
+#: q8 lane width by query tier; tiers beyond 512 stay on the ragged
+#: kernel (the reference's routing, kept so both packages agree)
+_Q8_LANES_BY_TIER = {64: 512, 128: 512, 256: 512, 512: 256}
+
+#: leftover-cohort size at which a partial q8 group replaces a ragged
+#: launch (the reference's constant)
+_Q8_PARTIAL_MIN = 6
+
+#: q8 groups (of 8 queries) per kernel launch
+_Q8_LAUNCH_GROUPS = 8
+
+
+def plan_tier_launches(queries_enc, safe_pad):
+    """Plan kernel routing for a query batch.
+
+    Queries are grouped into cohorts by profile tier (padded query
+    length); within each tier, full groups of `q8.QB` queries take the
+    q8 kernel when the tier has a q8 lane route and ``safe_pad`` holds,
+    and the remainder takes the ragged kernel.
+
+    Returns a list of ``(tier, lanes_q8, q8_groups, v2_idx)`` sorted by
+    tier: ``q8_groups`` is a list of QB-length lists of query indices
+    (empty when nothing routes to q8), ``v2_idx`` the leftover indices.
+    """
+    cohorts: dict = {}
+    for i, q in enumerate(queries_enc):
+        tier = ragged.profile_qpad(max(len(q), 8))
+        cohorts.setdefault(tier, []).append(i)
+
+    plan = []
+    for tier, qidx in sorted(cohorts.items()):
+        lanes_q8 = _Q8_LANES_BY_TIER.get(tier) if safe_pad else None
+        q8_idx, v2_idx = [], qidx
+        if lanes_q8 is not None:
+            order = sorted(qidx, key=lambda i: -queries_enc[i].shape[0])
+            m = (len(order) // q8.QB) * q8.QB
+            if len(order) - m >= _Q8_PARTIAL_MIN:
+                m = len(order)
+            q8_idx, v2_idx = order[:m], order[m:]
+        groups = [
+            q8_idx[k : k + q8.QB] for k in range(0, len(q8_idx), q8.QB)
+        ]
+        plan.append((tier, lanes_q8, groups, v2_idx))
+    return plan
+
+
+def _search_batch_kernels(
+    database, start, end, queries_enc, matrix, go, ge, algorithm,
+    with_ends, device,
+):
+    """Kernel route: one launch per query-tier cohort (q8 launches of
+    up to `_Q8_LAUNCH_GROUPS` groups, then a ragged launch for the
+    leftovers)."""
+    nq = len(queries_enc)
+    n = max(end - start, 0)
+    launches = []  # (device tensor, row -> query-index list)
+
+    for _, lanes_q8, groups, v2_idx in plan_tier_launches(
+        queries_enc, safe_pad=True
+    ):
+        if groups:
+            fpw = packing.pack_database_slice_flat(
+                database, start, end, lanes=lanes_q8
+            )
+            flat_t, lengths, bos, cos, los, inv_pos = _flat_device(
+                fpw, device
+            )
+            for k in range(0, len(groups), _Q8_LAUNCH_GROUPS):
+                gs = groups[k : k + _Q8_LAUNCH_GROUPS]
+                profs, qv, maxq = _profiles_q8(
+                    queries_enc, matrix, gs, lanes_q8, device
+                )
+                s, qe, te = q8.search_flat_q8(
+                    profs, qv, maxq, flat_t, lengths, bos, cos, los,
+                    int(go), int(ge), algorithm, with_ends,
+                    chunk=fpw.chunk,
+                )
+                launches.append((
+                    _assemble_flat_q8(inv_pos, s, qe, te, with_ends),
+                    [qi for g in gs for qi in g],
+                ))
+        if v2_idx:
+            cohort = [queries_enc[i] for i in v2_idx]
+            fp = packing.pack_database_slice_flat(database, start, end)
+            flat_t, lengths, bos, cos, los, inv_pos = _flat_device(fp, device)
+            profs, qlens = _profiles_for_cohort(cohort, matrix, device)
+            s, qe, te = ragged.search_flat(
+                profs, qlens, flat_t, lengths, bos, cos, los,
+                int(go), int(ge), algorithm, with_ends, chunk=fp.chunk,
+            )
+            launches.append((
+                _assemble_flat(inv_pos, s, qe, te, with_ends),
+                list(v2_idx),
+            ))
+
+    scores = np.zeros((nq, n), dtype=np.int32)
+    q_ends = np.full((nq, n), -1, dtype=np.int32)
+    t_ends = np.full((nq, n), -1, dtype=np.int32)
+    for dev_out, order in launches:
+        block = dev_out.cpu().numpy()
+        for pos, qi in enumerate(order):
+            if with_ends:
+                scores[qi] = block[pos, 0]
+                q_ends[qi] = block[pos, 1]
+                t_ends[qi] = block[pos, 2]
+            else:
+                scores[qi] = block[pos]
+    return scores, q_ends, t_ends
+
+
+def _sweep_targets(fp: packing.FlatPacked, device):
+    """``(T_max, N)`` symbol matrix + lengths + inverse positions of a
+    flat pack for the sweep route, cached on the pack per device."""
+    cache = fp.__dict__.setdefault("_sweep", {})
+    key = str(device)
+    hit = cache.get(key)
+    if hit is None:
+        flat_t, lengths, bos, _, _, inv_pos = _flat_device(fp, device)
+        cols = sweep.columns_from_flat(flat_t, lengths, bos, fp.chunk)
+        hit = (cols, lengths.reshape(-1), inv_pos)
+        cache[key] = hit
+    return hit
+
+
+def _search_batch_sweep(
+    database, start, end, queries_enc, matrix, go, ge, algorithm, device
+):
+    """Sweep route: one `sweep.search` per query over the flat pack."""
+    fp = packing.pack_database_slice_flat(database, start, end)
+    cols, lengths, inv_pos = _sweep_targets(fp, device)
+    out = []
+    for q in queries_enc:
+        prof = torch.as_tensor(sweep.make_profile_t(q, matrix)).to(device)
+        s, qe, te = sweep.search(
+            prof[None], [q.shape[0]], cols, lengths, go, ge, algorithm
+        )
+        block = torch.stack([s[0], qe[0], te[0]]).index_select(1, inv_pos)
+        out.append(block.cpu().numpy())
+    return out
+
+
+#: the reference kernels carry H/E in fp32, exact within (-2**24, 2**24);
+#: the port keeps the same predicate so both packages route alike
+_FP32_EXACT_BOUND = 2**24
+
+
+def _fp32_exact_domain(
+    database, start, end, queries_enc, matrix, gap_open, gap_extend
+) -> bool:
+    """Whether every DP intermediate of this call fits the reference
+    kernels' fp32 exact-integer window (static, conservative bound)."""
+    if gap_open < 0 or gap_extend < 0:
+        return False
+    t_max = _slice_maxlen(database, start, end)
+    q_max = int(max((q.shape[0] for q in queries_enc), default=0))
+    m_max = int(np.abs(matrix).max(initial=0))
+    span = q_max + t_max
+    bound = span * m_max + gap_open + span * gap_extend
+    q_pad_bound = max(2 * q_max, q_max + 512, 64)
+    worst = bound + gap_open + q_pad_bound * min(gap_open, gap_extend)
+    return worst < _FP32_EXACT_BOUND
+
+
+def search_scores_batch(
+    database,
+    start: int,
+    end: int,
+    queries_enc,
+    matrix: np.ndarray,
+    gap_open: int,
+    gap_extend: int,
+    algorithm: str,
+    with_ends: bool = True,
+    device="cuda",
+):
+    """Multi-query search over ``database[start:end)`` on ``device``.
+
+    Returns ``(scores, q_ends, t_ends)`` numpy arrays of shape
+    ``(n_queries, n_targets)`` each, in slice-local target order.
+    Must be called with the database read lock held.
+    """
+    device = torch.device(device)
+    n = end - start
+    nq = len(queries_enc)
+    if n <= 0 or nq == 0:
+        z = np.zeros((nq, max(n, 0)), dtype=np.int32)
+        return z, z.copy(), z.copy()
+
+    queries_enc = [np.asarray(q, dtype=np.uint8) for q in queries_enc]
+    use_kernels = (
+        np.abs(matrix).max(initial=0) <= 256
+        and matrix.shape[1] <= 31
+        and _fp32_exact_domain(
+            database, start, end, queries_enc, matrix, gap_open, gap_extend
+        )
+    )
+    kernel_ok = [
+        use_kernels and ragged.supports(q.shape[0]) for q in queries_enc
+    ]
+
+    scores = np.zeros((nq, n), dtype=np.int32)
+    q_ends = np.full((nq, n), -1, dtype=np.int32)
+    t_ends = np.full((nq, n), -1, dtype=np.int32)
+
+    dev_idx = [i for i, ok in enumerate(kernel_ok) if ok]
+    if dev_idx:
+        s, qe, te = _search_batch_kernels(
+            database, start, end, [queries_enc[i] for i in dev_idx],
+            matrix, gap_open, gap_extend, algorithm, with_ends, device,
+        )
+        for k, i in enumerate(dev_idx):
+            scores[i], q_ends[i], t_ends[i] = s[k], qe[k], te[k]
+
+    sweep_idx = [
+        i for i, ok in enumerate(kernel_ok)
+        if not ok and queries_enc[i].shape[0] > 0
+    ]
+    if sweep_idx:
+        blocks = _search_batch_sweep(
+            database, start, end, [queries_enc[i] for i in sweep_idx],
+            matrix, gap_open, gap_extend, algorithm, device,
+        )
+        for i, block in zip(sweep_idx, blocks):
+            scores[i], q_ends[i], t_ends[i] = block
+
+    for i, q in enumerate(queries_enc):
+        if q.shape[0] == 0:
+            scores[i], q_ends[i], t_ends[i] = _empty_query_results(
+                database, start, end, gap_open, gap_extend, algorithm
+            )
+    return scores, q_ends, t_ends
+
+
+def search_scores(
+    database,
+    start: int,
+    end: int,
+    query_enc: np.ndarray,
+    matrix: np.ndarray,
+    gap_open: int,
+    gap_extend: int,
+    algorithm: str,
+    with_ends: bool = True,
+    device="cuda",
+):
+    """Single-query search; see `search_scores_batch`."""
+    s, qe, te = search_scores_batch(
+        database, start, end, [query_enc], matrix, gap_open, gap_extend,
+        algorithm, with_ends=with_ends, device=device,
+    )
+    return s[0], qe[0], te[0]
+
+
+def _empty_query_results(database, start, end, go, ge, algorithm):
+    n = end - start
+    lengths = np.asarray(
+        database.get_lengths()[start:end], dtype=np.int64
+    )
+    if algorithm == "nw":
+        scores = np.where(lengths > 0, -(go + (lengths - 1) * ge), 0)
+        t_ends = (lengths - 1).astype(np.int32)
+    else:
+        scores = np.zeros(n, dtype=np.int64)
+        t_ends = np.full(n, -1, np.int32)
+    return scores.astype(np.int32), np.full(n, -1, np.int32), t_ends
+
+
+def search(
+    database,
+    query_enc: np.ndarray,
+    matrix: np.ndarray,
+    gap_open: int,
+    gap_extend: int,
+    mode: str,
+    algorithm: str,
+    start: int,
+    end: int,
+    device="cuda",
+):
+    """Score or score+end search over ``database[start:end)``; returns
+    result objects.  Must be called with the database read lock held."""
+    scores, q_ends, t_ends = search_scores(
+        database, start, end, query_enc, matrix, gap_open, gap_extend,
+        algorithm, with_ends=(mode != "score"), device=device,
+    )
+    if mode == "score":
+        return build_score_results(start, scores)
+    return build_end_results(start, scores, q_ends, t_ends)

@@ -22,7 +22,11 @@ setup(
         "pyopal_tpu.utils",
         "pyopal_tpu.native",
         "pyopal_tpu.tests",
+        "pyopal_tpu_torch",
+        "pyopal_tpu_torch.models",
+        "pyopal_tpu_torch.ops",
     ],
+    package_data={"pyopal_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=[
         Extension(
             "pyopal_tpu.native._encoder",

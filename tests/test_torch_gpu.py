@@ -1,0 +1,126 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips (with its reason) where PyTorch sees
+no CUDA device, as on CPU-only machines.  On a machine with the card::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_gpu.py
+
+builds the kernels and holds each one against its plain PyTorch
+version on the same inputs, with tolerance 0 (integer DP).
+``--noconftest`` skips the suite's ``conftest.py``, which configures
+JAX; the port's machine need not have JAX.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pyopal_tpu_torch.matrices import ScoringMatrix
+from pyopal_tpu_torch.ops import packing, q8, ragged
+
+pytestmark = pytest.mark.cuda
+
+S = ScoringMatrix.from_name("BLOSUM50").int_data()
+LENGTHS = [0, 1, 63, 64, 65, 127, 128, 129, 300, 17]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _flat(fp, dev):
+    return [
+        torch.from_numpy(a).to(dev)
+        for a in (fp.flat_targets, fp.lengths, fp.block_of_step,
+                  fp.chunk_of_step, fp.last_of_step)
+    ]
+
+
+def _equal(kernel_out, plain_out):
+    torch.cuda.synchronize()
+    for k, p in zip(kernel_out, plain_out):
+        assert k.shape == p.shape
+        assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("with_ends", [False, True])
+@pytest.mark.parametrize("algo", ["nw", "hw", "ov", "sw"])
+def test_ragged_kernel_matches_plain(dev, algo, with_ends):
+    rng = np.random.default_rng(2)
+    seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in LENGTHS]
+    queries = [rng.integers(0, 20, n).astype(np.uint8) for n in (200, 31)]
+    fp = packing.pack_sequences_flat(seqs)
+    args = (
+        torch.from_numpy(ragged.make_profiles_host(queries, S)).to(dev),
+        torch.tensor([200, 31], dtype=torch.int32, device=dev),
+        *_flat(fp, dev), 3, 1, algo, with_ends, fp.chunk,
+    )
+    before = ragged.launches
+    _equal(ragged.search_flat(*args), ragged.search_flat_reference(*args))
+    assert ragged.launches == before + 1
+
+
+@pytest.mark.parametrize("with_ends", [False, True])
+@pytest.mark.parametrize("algo", ["nw", "hw", "ov", "sw"])
+def test_q8_kernel_matches_plain(dev, algo, with_ends):
+    rng = np.random.default_rng(3)
+    seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in LENGTHS]
+    qls = [64, 1, 40, 63, 7, 50, 29, 33, 21, 3, 64, 12, 9, 17]
+    queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
+    fp = packing.pack_sequences_flat(seqs, lanes=512)
+    groups = q8.plan_groups(qls)
+    arrays = q8.make_profiles_q8_host(queries, S, groups, lanes=512)
+    args = (
+        *(torch.from_numpy(a).to(dev) for a in arrays),
+        *_flat(fp, dev), 0, 2, algo, with_ends, fp.chunk,
+    )
+    before = q8.launches
+    _equal(q8.search_flat_q8(*args), q8.search_flat_q8_reference(*args))
+    assert q8.launches == before + 1
+
+
+@pytest.mark.parametrize("split", ["lanes", "units"])
+@pytest.mark.parametrize("kernel", ["ragged", "q8"])
+def test_kernel_split_by_scratch_budget_matches_plain(
+    dev, kernel, split, monkeypatch
+):
+    """A scratch budget too small for one launch splits the call into
+    launches over query (group) and lane ranges; the result is the same."""
+    rng = np.random.default_rng(5)
+    seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in LENGTHS * 30]
+    if kernel == "ragged":
+        qls = [200, 31, 90]
+        queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
+        fp = packing.pack_sequences_flat(seqs)
+        args = (
+            torch.from_numpy(ragged.make_profiles_host(queries, S)).to(dev),
+            torch.tensor(qls, dtype=torch.int32, device=dev),
+            *_flat(fp, dev), 3, 1, "sw", True, fp.chunk,
+        )
+        mod, fn, plain, n_units = ragged, ragged.search_flat, \
+            ragged.search_flat_reference, len(qls)
+        unit_rows = args[0].shape[1]
+    else:
+        qls = [64, 1, 40, 63, 7, 50, 29, 33, 21, 3, 64, 12, 9, 17]
+        queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
+        fp = packing.pack_sequences_flat(seqs, lanes=512)
+        groups = q8.plan_groups(qls)
+        arrays = q8.make_profiles_q8_host(queries, S, groups, lanes=512)
+        args = (
+            *(torch.from_numpy(a).to(dev) for a in arrays),
+            *_flat(fp, dev), 3, 1, "sw", True, fp.chunk,
+        )
+        mod, fn, plain, n_units = q8, q8.search_flat_q8, \
+            q8.search_flat_q8_reference, len(groups)
+        unit_rows = args[0].shape[1]
+    n_lanes = fp.lengths.size
+    lanes_per_unit = 128 if split == "lanes" else n_lanes
+    monkeypatch.setattr(ragged, "SCRATCH_BYTES", 8 * unit_rows * lanes_per_unit)
+    want = n_units * (-(-n_lanes // lanes_per_unit))
+    assert want > 1
+    before = mod.launches
+    _equal(fn(*args), plain(*args))
+    assert mod.launches == before + want

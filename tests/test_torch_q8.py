@@ -1,0 +1,103 @@
+"""K2's plain version against the reference q8 kernel.
+
+`pyopal_tpu_torch.ops.q8.search_flat_q8` on CPU tensors runs the plain
+PyTorch version of the CUDA kernel; it must equal
+`pyopal_tpu.ops.pallas_q8.search_flat_q8` (interpreted on the CPU) on
+the same interleaved profiles and flat arrays, on every slot and lane
+(empty slots included), with tolerance 0.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyopal_tpu.matrices import ScoringMatrix
+from pyopal_tpu.ops import packing as ref_packing
+from pyopal_tpu.ops import pallas_q8 as ref_q8
+from pyopal_tpu_torch.ops import q8
+
+S = ScoringMatrix.from_name("BLOSUM50").int_data()
+
+
+def _compare(queries, seqs, go, ge, algo, with_ends, lanes):
+    fp = ref_packing.pack_sequences_flat(seqs, lanes=lanes)
+    groups = q8.plan_groups([len(q) for q in queries])
+    assert groups == ref_q8.plan_groups([len(q) for q in queries])
+    ref_profs, ref_qv, ref_maxq = ref_q8.make_profiles_q8_host(
+        queries, S, groups, lanes=lanes
+    )
+    profs, qv, maxq = q8.make_profiles_q8_host(queries, S, groups, lanes=lanes)
+    np.testing.assert_array_equal(profs, ref_profs.astype(np.int32))
+    np.testing.assert_array_equal(qv, ref_qv)
+    np.testing.assert_array_equal(maxq, ref_maxq)
+    flat = (fp.flat_targets, fp.lengths, fp.block_of_step,
+            fp.chunk_of_step, fp.last_of_step)
+    ref = ref_q8.search_flat_q8(
+        jnp.asarray(ref_profs, jnp.bfloat16), jnp.asarray(ref_qv),
+        jnp.asarray(ref_maxq), *[jnp.asarray(a) for a in flat],
+        go, ge, algo, with_ends, interpret=True, chunk=fp.chunk,
+    )
+    got = q8.search_flat_q8(
+        torch.from_numpy(profs), torch.from_numpy(qv),
+        torch.from_numpy(maxq), *[torch.from_numpy(a) for a in flat],
+        go, ge, algo, with_ends, chunk=fp.chunk,
+    )
+    for r, g in zip(ref, got):
+        assert g.dtype == torch.int32
+        assert g.shape == (len(groups), fp.n_blocks, q8.QB, lanes)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    return got
+
+
+@pytest.mark.parametrize("with_ends", [False, True])
+@pytest.mark.parametrize("algo", ["nw", "hw", "ov", "sw"])
+def test_plain_matches_reference(algo, with_ends):
+    """14 queries: one full group and a partial group of 6 slots."""
+    rng = np.random.default_rng(23)
+    queries = [
+        rng.integers(0, 24, n).astype(np.uint8)
+        for n in (13, 1, 40, 64, 7, 66, 29, 55, 21, 3, 64, 50, 9, 33)
+    ]
+    lens = [0, 1, 63, 64, 65, 128, 129, 40, 90, 17]
+    seqs = [rng.integers(0, 24, n).astype(np.uint8) for n in lens]
+    go, ge = (3, 1) if with_ends else (1, 3)
+    lanes = 512 if with_ends else 256
+    s, qe, te = _compare(queries, seqs, go, ge, algo, with_ends, lanes)
+    if not with_ends:
+        assert (qe == -1).all() and (te == -1).all()
+
+
+def test_plain_matches_reference_ties():
+    """Repetitive sequences and zero gaps maximize score ties."""
+    queries = [
+        np.tile(np.array([0, 1], np.uint8), 20)[: 17 + i] for i in range(8)
+    ]
+    seqs = [
+        np.tile(np.array([0, 1, 0], np.uint8), 30)[: 11 + 7 * i]
+        for i in range(9)
+    ]
+    for algo in ("sw", "ov"):
+        _compare(queries, seqs, 0, 0, algo, True, 128)
+
+
+def test_wrapper_rejects_bad_inputs():
+    rng = np.random.default_rng(1)
+    queries = [rng.integers(0, 24, 20).astype(np.uint8) for _ in range(8)]
+    fp = ref_packing.pack_sequences_flat(
+        [rng.integers(0, 24, 30).astype(np.uint8)], lanes=256
+    )
+    groups = q8.plan_groups([len(q) for q in queries])
+    profs, qv, maxq = q8.make_profiles_q8_host(queries, S, groups, lanes=128)
+    flat = [torch.from_numpy(a) for a in (
+        fp.flat_targets, fp.lengths, fp.block_of_step, fp.chunk_of_step,
+        fp.last_of_step,
+    )]
+    args = [torch.from_numpy(profs), torch.from_numpy(qv),
+            torch.from_numpy(maxq)]
+    with pytest.raises(ValueError):  # qv built for 128 lanes, pack has 256
+        q8.search_flat_q8(*args, *flat, 3, 1, "sw", True, chunk=fp.chunk)
+    args[0] = args[0].float()
+    with pytest.raises(TypeError):
+        q8.search_flat_q8(*args, *flat, 3, 1, "sw", True, chunk=fp.chunk)
+    assert q8.launches == 0  # CPU tensors never launch the kernel

@@ -1,0 +1,249 @@
+"""The port's search path as a whole, on the CPU, against `pyopal_tpu`.
+
+`pyopal_tpu_torch` with ``device="cpu"`` runs the same dispatch as on
+the card with the kernels' plain versions (or the sweep, where the
+kernels do not take a call); every result must equal the reference
+package's exactly.
+"""
+
+import pickle
+import random
+
+import numpy as np
+import pytest
+
+import pyopal_tpu as po
+import pyopal_tpu_torch as pt
+from pyopal_tpu.ops import engine as ref_engine
+from pyopal_tpu_torch import convert
+from pyopal_tpu_torch.ops import engine, naive, q8, ragged, sweep
+
+
+def _case(seed):
+    """The seeded random config of ``tests/test_fuzz.py::_case``, as
+    numpy state (letters, matrix) that both packages load."""
+    rng = random.Random(seed)
+    nrg = np.random.default_rng(seed)
+    asize = rng.choice([2, 4, 20, 24, 27])
+    letters = "ABCDEFGHIJKLMNOPQRSTUVWXYZ*"[:asize]
+    hi = rng.choice([5, 17, 250])
+    m = nrg.integers(-hi, hi + 1, (asize, asize))
+    m = ((m + m.T) // 2).astype(np.float32)
+    go = rng.choice([0, 1, 3, 11])
+    ge = rng.choice([0, 1, 2, 7])
+    algo = rng.choice(["nw", "hw", "ov", "sw"])
+    mode = rng.choice(["score", "end"])
+    n = rng.randint(1, 40)
+    lens = [rng.choice([0, 1, 2, 17, 63, 64, 65, 130]) for _ in range(n)]
+    targets = [
+        "".join(rng.choices(letters[: max(asize - 1, 1)], k=k))
+        for k in lens
+    ]
+    qlen = rng.choice([1, 5, 33, 64, 100])
+    query = "".join(rng.choices(letters[: max(asize - 1, 1)], k=qlen))
+    return letters, m, go, ge, algo, mode, targets, query
+
+
+def _both(letters, m, go, ge, targets):
+    ref_matrix = po.ScoringMatrix(m, letters)
+    ref_db = po.Database(targets, alphabet=letters)
+    matrix = convert.scoring_matrix_from_numpy(letters, m)
+    db = convert.database_from_numpy(
+        letters, [ref_db.get_encoded(i) for i in range(len(ref_db))]
+    )
+    return (
+        po.Aligner(ref_matrix, gap_open=go, gap_extend=ge),
+        ref_db,
+        pt.Aligner(matrix, gap_open=go, gap_extend=ge, device="cpu"),
+        db,
+    )
+
+
+def _tuples(results):
+    return [
+        (r.target_index, r.score, getattr(r, "query_end", None),
+         getattr(r, "target_end", None))
+        for r in results
+    ]
+
+
+@pytest.mark.parametrize("seed", range(32))
+def test_fuzz_config_matches_reference(seed):
+    letters, m, go, ge, algo, mode, targets, query = _case(seed)
+    ref_al, ref_db, al, db = _both(letters, m, go, ge, targets)
+    rng = random.Random(seed ^ 0xBEEF)
+    others = [
+        "".join(rng.choices(letters[: max(len(letters) - 1, 1)], k=k))
+        for k in (0, 7, 40)
+    ]
+    queries = [query] + others
+    kw = dict(mode=mode, algorithm=algo)
+
+    assert _tuples(al.align(query, db, **kw)) == _tuples(
+        ref_al.align(query, ref_db, **kw)
+    )
+    got = al.align_batch(queries, db, **kw)
+    ref = ref_al.align_batch(queries, ref_db, **kw)
+    assert [_tuples(x) for x in got] == [_tuples(x) for x in ref]
+    got = al.align_arrays(queries, db, start=1, **kw)
+    ref = ref_al.align_arrays(queries, ref_db, start=1, **kw)
+    assert got.keys() == ref.keys()
+    for key in ref:
+        np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+
+
+def test_batch_routes_through_both_kernels(monkeypatch):
+    """11 same-tier queries (one full q8 group + 3 leftovers) and one
+    query of another tier, against the reference's Pallas dispatch run
+    with interpreted kernels: the port must take the q8 and ragged
+    plain versions and never the sweep."""
+    monkeypatch.setattr(ref_engine, "_INTERPRET", True)
+    rng = np.random.default_rng(5)
+    letters = po.Alphabet().letters
+    targets = [
+        "".join(rng.choice(list(letters[:20]), int(n)))
+        for n in [0, 1, 63, 64, 65, 129] + list(rng.integers(1, 150, 30))
+    ]
+    queries = [
+        "".join(rng.choice(list(letters[:20]), int(n)))
+        for n in [70, 90, 100, 128, 77, 65, 99, 120, 110, 81, 66, 30]
+    ]
+    ref_al = po.Aligner()
+    ref_db = po.Database(targets)
+    al = pt.Aligner(device="cpu")
+    db = pt.Database(targets)
+    counts = (q8.plain_calls, ragged.plain_calls, sweep.launches)
+    got = al.align_arrays(queries, db, mode="end")
+    after = (q8.plain_calls, ragged.plain_calls, sweep.launches)
+    ref = ref_al.align_arrays(queries, ref_db, mode="end")
+    for key in ref:
+        np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+    assert after[0] - counts[0] == 1  # one q8 launch: the full group
+    assert after[1] - counts[1] == 2  # ragged: tier-128 leftovers, tier 64
+    assert after[2] == counts[2]  # nothing took the sweep
+
+
+def test_sweep_takes_what_the_kernels_do_not():
+    """A matrix entry beyond +-256 fails the kernel predicate: the call
+    goes to the sweep, and still equals the oracle."""
+    letters = "ACGT"
+    m = np.full((4, 4), -300, np.float32)
+    np.fill_diagonal(m, 400)
+    al = pt.Aligner(
+        convert.scoring_matrix_from_numpy(letters, m), device="cpu"
+    )
+    targets = ["ACGTTGCA", "", "A", "GGGG"]
+    db = pt.Database(targets, alphabet=letters)
+    before = (sweep.launches, ragged.plain_calls)
+    res = al.align("ACGTA", db, mode="end", algorithm="ov")
+    assert sweep.launches == before[0] + 1
+    assert ragged.plain_calls == before[1]
+    S = m.astype(np.int32)
+    enc = lambda s: np.frombuffer(db.alphabet.encode(s), np.uint8)  # noqa
+    for r, t in zip(res, targets):
+        assert (r.score, r.query_end, r.target_end) == naive.score_end(
+            enc("ACGTA"), enc(t), S, 3, 1, "ov"
+        )
+
+
+def test_long_query_takes_the_sweep():
+    """A query beyond 4096 residues (the reference's K3 route) takes the
+    sweep; the short query of the same batch stays on the kernels."""
+    rng = np.random.default_rng(4)
+    al = pt.Aligner(device="cpu")
+    plain = al.alphabet.letters[:20]
+    query = "".join(rng.choice(list(plain), 4100))
+    targets = ["".join(rng.choice(list(plain), n)) for n in (0, 1, 9, 30)]
+    db = pt.Database(targets)
+    before = (sweep.launches, ragged.plain_calls)
+    res = al.align_batch([query, query[:10]], db, mode="end")
+    assert sweep.launches - before[0] == 1
+    assert ragged.plain_calls - before[1] == 1
+    S = al.scoring_matrix.int_data()
+    enc = lambda s: np.frombuffer(db.alphabet.encode(s), np.uint8)  # noqa
+    for qq, hits in zip([query, query[:10]], res):
+        for r, t in zip(hits, targets):
+            want = naive.score_end(enc(qq), enc(t), S, 3, 1, "sw")
+            assert (r.score, r.query_end, r.target_end) == want
+
+
+@pytest.mark.parametrize("algo", ["nw", "hw", "ov", "sw"])
+def test_sweep_search_block_matches_reference(algo):
+    """The sweep's single-query entry against the reference XLA engine
+    (`pyopal_tpu.ops.xla.search_block`) on one padded block."""
+    import jax.numpy as jnp
+    import torch
+
+    from pyopal_tpu.ops import xla
+
+    rng = np.random.default_rng(17)
+    S = po.ScoringMatrix.from_name("BLOSUM50").int_data()
+    q = rng.integers(0, 24, 45).astype(np.uint8)
+    lens = np.array([0, 1, 2, 17, 63, 64, 65, 90], np.int32)
+    targets = rng.integers(0, 24, (96, lens.shape[0])).astype(np.int32)
+    for go, ge in ((3, 1), (1, 3)):
+        ref = xla.search_block(
+            jnp.asarray(xla.make_profile_t(q, S)), jnp.asarray(targets),
+            jnp.asarray(lens), go, ge, algo,
+        )
+        got = sweep.search_block(
+            torch.from_numpy(sweep.make_profile_t(q, S)),
+            torch.from_numpy(targets), torch.from_numpy(lens), go, ge, algo,
+        )
+        for r, g in zip(ref, got):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_plan_tier_launches_matches_reference():
+    rng = np.random.default_rng(9)
+    lens = [1, 8, 63, 64, 65, 129, 256, 257, 600, 3000] * 3 + [70] * 13
+    queries = [rng.integers(0, 20, n).astype(np.uint8) for n in lens]
+    for safe_pad in (True, False):
+        assert engine.plan_tier_launches(
+            queries, safe_pad
+        ) == ref_engine.plan_tier_launches(queries, safe_pad)
+
+
+def test_golden_values():
+    al = pt.Aligner(device="cpu")
+    db = pt.Database(["AACCGCTG"])
+    (nw,) = al.align("ACCTCG", db, mode="end", algorithm="nw")
+    assert (nw.score, nw.query_end, nw.target_end) == (44, 5, 7)
+    (sw,) = al.align("ACCTCG", db, mode="score", algorithm="sw")
+    assert sw.score == 47
+    targets = ["AACCGCTG", "ATGCGCT", "TTATTACG"]
+    hits = pt.align("ACCTG", targets, gap_open=2, ordered=True, device="cpu")
+    assert [r.score for r in hits] == [41, 31, 23]
+    hits = pt.align(
+        "ACCTG", targets, gap_open=2, ordered=True, threads=2, device="cpu"
+    )
+    assert sorted(r.score for r in hits) == [23, 31, 41]
+
+
+def test_full_mode_and_top_k_not_ported():
+    al = pt.Aligner(device="cpu")
+    db = pt.Database(["AACCGCTG"])
+    for call in (
+        lambda: al.align("ACC", db, mode="full"),
+        lambda: al.align_batch(["ACC"], db, mode="full"),
+        lambda: al.align_arrays(["ACC"], db, mode="full"),
+        lambda: al.align_async("ACC", db, mode="full"),
+        lambda: al.align_top_k("ACC", db),
+    ):
+        with pytest.raises(NotImplementedError, match="traceback"):
+            call()
+    with pytest.raises(ValueError, match="invalid search mode"):
+        al.align("ACC", db, mode="fast")
+
+
+def test_streams_and_pickling():
+    al = pt.Aligner("BLOSUM62", gap_open=5, gap_extend=2, device="cpu")
+    clone = pickle.loads(pickle.dumps(al))
+    assert clone == al and clone.device == al.device
+    db = pt.Database(["MKVLAT", "MKV", "AAAA"])
+    queries = ["MKV", "LAT", "KVLA"]
+    batch = al.align_batch(queries, db, mode="end")
+    assert list(al.align_many(queries, db, mode="end", batch_size=2)) == batch
+    futures = [al.align_async(q, db, mode="end") for q in queries]
+    assert [f.result() for f in futures] == batch
+    assert [al.align(q, db, mode="end") for q in queries] == batch
