@@ -9,12 +9,17 @@ Phases (the first failure ends the run with a nonzero exit code):
 
 1. the card: name and power limit from ``nvidia-smi``, torch and CUDA
    versions;
-2. the build: both kernels (``pyopal_tpu_torch/csrc/ragged.cu``,
-   ``q8.cu``) compiled with ``nvcc`` for ``sm_90a``, in parallel;
+2. the build: the three kernels (``pyopal_tpu_torch/csrc/ragged.cu``,
+   ``q8.cu``, ``ragged_long.cu``) compiled with ``nvcc`` for ``sm_90a``,
+   in parallel;
 3. each kernel against its plain PyTorch version on the card: all four
    algorithms in score and end modes at several query tiers, with edge
    target lengths and a 2500-residue self-hit (score > 12000), and calls
-   that a small scratch budget splits into several launches;
+   that a small scratch budget splits into several launches; K1 at the
+   fine tiers 4608/5120/6144; K3 segment by segment (scores, ends, the
+   boundary rows and the trackers it hands on) at 32- and 64-row
+   segments, and at 2048 rows for a 6,500-residue query against two
+   4,000-residue slices of itself;
 4. the golden values through `pyopal_tpu_torch.Aligner` on ``cuda``;
 5. the main path at full size: a synthetic 12,071-sequence database
    (the generator of ``bench.py``, seed 12071) searched with 67
@@ -23,10 +28,16 @@ Phases (the first failure ends the run with a nonzero exit code):
    ``Aligner.align``, with the launch counters set to 0 just before and
    read just after; a seeded sample of the results is checked against
    the scalar oracle, and nw/hw/ov end mode on a 1,000-target slice too;
+   then the long-query path on the same database: a 35,000-residue
+   query (18 K3 segments) and a 5,000-residue one (one K1 launch at the
+   5,120 fine tier) through ``Aligner.align`` in end and score modes,
+   counted the same way, held against the plain versions on a
+   1,000-target slice and against the oracle on the shortest targets;
 6. timings with CUDA events after a warm-up, each kernel held against
-   its plain version at the main path's shapes, the bound of each
-   kernel, end-to-end throughput, and each kernel's launches in one
-   ``align_arrays`` and one ``align`` call, counted;
+   its plain version at the main path's shapes (K3: one 2048-row
+   segment of the 35,000-residue query), the bound of each kernel,
+   end-to-end throughput and long-query call times, and each kernel's
+   launches in one ``align_arrays`` and one ``align`` call, counted;
 7. the ``kernels`` line, then the card line, then the result line.
 
 Every number printed is measured in this run on this card; the card's
@@ -92,7 +103,7 @@ def main():
         return 1
     import pyopal_tpu_torch as pt
     from pyopal_tpu_torch.ops import _cuda, engine, naive, packing, q8
-    from pyopal_tpu_torch.ops import ragged, sweep
+    from pyopal_tpu_torch.ops import ragged, ragged_long, sweep
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -127,16 +138,46 @@ def main():
     def dev_flat(fp):
         return engine._flat_device(fp, dev)[:5]
 
+    plain_seconds = {}  # the last plain run of each kernel
+
     def compare(name, kernel, plain, args, label):
         ko = kernel(*args)
         torch.cuda.synchronize()
+        t1 = time.perf_counter()
         po = plain(*args)
         torch.cuda.synchronize()
+        plain_seconds[name] = time.perf_counter() - t1
         err = max(int((k.long() - p.long()).abs().max()) for k, p in
                   zip(ko, po)) if ko[0].numel() else 0
         if err != 0 or any(k.shape != p.shape for k, p in zip(ko, po)):
             fail(f"{name} differs from its plain version at {label}: {err}")
         return ko, err
+
+    k3_errs = [0]
+
+    def compare_segments(q, fp, algo, ends, qseg, label):
+        """K3 against its plain version segment by segment, both given
+        the kernel's state from the segment before; returns the kernel's
+        launches and its last outputs."""
+        flat = dev_flat(fp)
+        n_seg = -(-len(q) // qseg)
+        prof = torch.from_numpy(ragged.make_profiles_host(
+            [q], S, q_pad=n_seg * qseg)[0]).to(dev)
+        hb = torch.zeros(flat[0].shape, dtype=torch.int32, device=dev)
+        fb = torch.full_like(hb, ragged_long.NEG)
+        trk = torch.zeros((ragged_long.N_TRACK, *fp.lengths.shape[::2]),
+                          dtype=torch.int32, device=dev)
+        before = ragged_long.launches
+        for s in range(n_seg):
+            args = (prof[s * qseg:(s + 1) * qseg], len(q), s * qseg, *flat,
+                    hb, fb, trk, GO, GE, algo, ends, fp.chunk)
+            out, err = compare(
+                "ragged_long", ragged_long.search_segment,
+                ragged_long.segment_reference, args,
+                f"{label} {algo} ends={ends} segment {s}")
+            k3_errs.append(err)
+            hb, fb, trk = out[3:]
+        return ragged_long.launches - before, out
 
     # --- 3. kernels against their plain versions ----------------------------
     rng = np.random.default_rng(7)
@@ -219,12 +260,65 @@ def main():
             compare(name, kfn, pfn, args, f"split by {how}")
             split_launches[f"{name} by {how}"] = mod.launches - before
             n_checked += 1
+    # K3 with a budget of 64 rows x 128 lanes: one launch per 128 lanes
+    # in each of three 64-row segments
+    ragged.SCRATCH_BYTES = 8 * 64 * 128
+    q = rng.integers(0, 20, 192).astype(np.uint8)
+    split_launches["ragged_long by lanes"], _ = compare_segments(
+        q, fp128, "sw", True, 64, "split by lanes")
+    n_checked += 3
     ragged.SCRATCH_BYTES = budget
     if min(split_launches.values()) < 2:
         fail(f"a small scratch budget did not split the call: "
              f"{split_launches}")
+
+    # K1 at the fine tiers of single long queries
+    for Q in (4500, 5000, 6000):
+        q = rng.integers(0, 20, Q).astype(np.uint8)
+        tier = ragged.fine_qpad(Q)
+        profs = torch.from_numpy(
+            ragged.make_profiles_host([q], S, q_pad=tier)).to(dev)
+        qlens = torch.tensor([Q], dtype=torch.int32, device=dev)
+        for algo in algos if Q == 5000 else ("sw",):
+            for ends in (False, True) if algo == "sw" else (True,):
+                compare("ragged", ragged.search_flat,
+                        ragged.search_flat_reference,
+                        (profs, qlens, *dev_flat(fp128), GO, GE, algo, ends,
+                         fp128.chunk), f"fine tier {tier} {algo} ends={ends}")
+                n_checked += 1
+
+    # K3 segment by segment: 3 segments of 32 rows and 2 of 64, each
+    # query holding a 30-residue stretch of a target
+    k3_launches = 0
+    for qseg, Q in ((32, 70), (64, 100)):
+        q = rng.integers(0, 20, Q).astype(np.uint8)
+        q[5:35] = seqs[7][90:120]
+        for algo in algos:
+            for ends in (False, True):
+                k3_launches += compare_segments(
+                    q, fp128, algo, ends, qseg, f"qseg {qseg}")[0]
+                n_checked += -(-Q // qseg)
+    # 2048-row segments: a 6,500-residue query against two 4,000-residue
+    # slices of itself that cross the 2048/4096/6144 row boundaries
+    q = rng.integers(0, 20, 6500).astype(np.uint8)
+    fp_long = packing.pack_sequences_flat(
+        [seqs[0], seqs[1], seqs[4], seqs[7], q[1000:5000], q[2500:6500]])
+    pos = [int(fp_long.inv_pos[i]) for i in (4, 5)]
+    long_hits = {}
+    for algo, ends in (("sw", False), ("sw", True), ("ov", True)):
+        n, out = compare_segments(q, fp_long, algo, ends,
+                                  ragged_long.QSEG, "qseg 2048")
+        k3_launches += n
+        n_checked += n
+        long_hits[f"{algo} ends={ends}"] = [
+            [int(o.reshape(-1)[p]) for o in out[:3]] for p in pos]
+    sw_hits = long_hits["sw ends=True"]
+    if min(h[0] for h in sw_hits) <= 12000:
+        fail(f"4,000-residue self-hits scored {sw_hits}")
     emit({"phase": "kernels_vs_plain", "cases": n_checked, "equal": True,
           "self_hit_score": self_score, "split_launches": split_launches,
+          "k3_segment_launches": k3_launches,
+          "k3_self_hits_score_qend_tend": long_hits,
           "seconds": time.perf_counter() - t0})
 
     # --- 4. golden values ------------------------------------------------------
@@ -257,16 +351,22 @@ def main():
           "queries": len(queries), "query_length": 256,
           "seconds": time.perf_counter() - t0})
 
-    for mod in (ragged, q8, sweep):
+    kernel_mods = {"ragged": ragged, "q8": q8, "ragged_long": ragged_long,
+                   "sweep": sweep}
+
+    def launch_counts():
+        return {k: m.launches for k, m in kernel_mods.items()}
+
+    for mod in kernel_mods.values():
         mod.launches = 0
     t0 = time.perf_counter()
     res_s = al.align_arrays(queries, db, mode="score")
     res_e = al.align_arrays(queries, db, mode="end")
     single = al.align(queries[0], db, mode="score")
-    counts = {"ragged": ragged.launches, "q8": q8.launches,
-              "sweep": sweep.launches}
+    counts = launch_counts()
     first_seconds = time.perf_counter() - t0
-    if counts["ragged"] < 1 or counts["q8"] < 1 or counts["sweep"] != 0:
+    if (counts["ragged"] < 1 or counts["q8"] < 1 or counts["sweep"] != 0
+            or counts["ragged_long"] != 0):
         fail(f"main path launches: {counts}")
     for key in ("scores", "query_ends", "target_ends"):
         arr = res_e[key]
@@ -279,42 +379,165 @@ def main():
     if res_s["scores"].min() < 0:
         fail("negative sw score")
 
+    # the oracle's pairs, chosen before any result is read: a seeded sample
+    # of the main path, nw/hw/ov on a 1,000-target slice, and the long
+    # queries of 5b against the shortest targets; worker processes score
+    # them while the card runs the main path and the long-query path
     enc_q = [np.frombuffer(db.alphabet.encode(q), np.uint8) for q in queries]
     srng = np.random.default_rng(256)
     pairs = [(int(a), int(b)) for a, b in zip(
         srng.integers(0, 67, 256), srng.integers(0, n_t, 256))]
-    jobs = [(enc_q[a], db.get_encoded(b), S, GO, GE, "sw") for a, b in pairs]
-    want = [(int(res_e["scores"][a, b]), int(res_e["query_ends"][a, b]),
-             int(res_e["target_ends"][a, b])) for a, b in pairs]
     lo = max(n_t // 2 - 1000, 0)
     hi = min(lo + 1000, n_t)
     slice_q = queries[:11]
-    for algo in ("nw", "hw", "ov"):
-        out = al.align_arrays(slice_q, db, mode="end", algorithm=algo,
-                              start=lo, end=hi)
-        for a, b in zip(srng.integers(0, 11, 48), srng.integers(0, hi - lo, 48)):
-            jobs.append((enc_q[a], db.get_encoded(lo + int(b)), S, GO, GE,
-                         algo))
-            want.append(tuple(int(out[k][a, b]) for k in
-                              ("scores", "query_ends", "target_ends")))
-    t1 = time.perf_counter()
+    slice_pairs = {
+        algo: [(int(a), int(b)) for a, b in zip(
+            srng.integers(0, 11, 48), srng.integers(0, hi - lo, 48))]
+        for algo in ("nw", "hw", "ov")
+    }
+    jobs = [(enc_q[a], db.get_encoded(b), S, GO, GE, "sw") for a, b in pairs]
+    jobs += [(enc_q[a], db.get_encoded(lo + b), S, GO, GE, algo)
+             for algo, ps in slice_pairs.items() for a, b in ps]
+    lrng = np.random.default_rng(35000)
+    long_q = {n: "".join(letters[i] for i in lrng.integers(0, 20, n))
+              for n in (35000, 5000)}
+    long_enc = {n: np.frombuffer(db.alphabet.encode(q), np.uint8)
+                for n, q in long_q.items()}
+    lengths_all = np.asarray(db.get_lengths())
+    shortest = np.argsort(lengths_all, kind="stable")
+    slice_short = lo + np.argsort(lengths_all[lo:hi], kind="stable")[:4]
+    long_pairs = [(n, int(b), "sw") for n, k in ((35000, 16), (5000, 8))
+                  for b in shortest[:k]]
+    long_pairs += [(5000, int(b), algo) for algo in ("nw", "hw", "ov")
+                   for b in slice_short]
+    long_jobs = [(long_enc[n], db.get_encoded(b), S, GO, GE, algo)
+                 for n, b, algo in long_pairs]
+
     import concurrent.futures as cf
     import multiprocessing
 
-    workers = min(8, os.cpu_count() or 1)
-    with cf.ProcessPoolExecutor(
-        workers, mp_context=multiprocessing.get_context("spawn")
-    ) as ex:
-        got = list(ex.map(naive.score_end, *zip(*jobs), chunksize=8))
-    bad = [(j[5], w, tuple(g)) for j, w, g in zip(jobs, want, got)
-           if tuple(w) != tuple(g)]
-    if bad:
-        fail(f"{len(bad)} of {len(jobs)} sampled pairs differ from the "
-             f"oracle, e.g. {bad[:3]}")
+    # one core stays with this process, which drives the card
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    pool = cf.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        long_oracle = pool.map(naive.score_end, *zip(*long_jobs), chunksize=1)
+        main_oracle = pool.map(naive.score_end, *zip(*jobs), chunksize=8)
+
+        for mod in kernel_mods.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        res_s = al.align_arrays(queries, db, mode="score")
+        res_e = al.align_arrays(queries, db, mode="end")
+        single = al.align(queries[0], db, mode="score")
+        counts = launch_counts()
+        first_seconds = time.perf_counter() - t0
+        if (counts["ragged"] < 1 or counts["q8"] < 1 or counts["sweep"] != 0
+                or counts["ragged_long"] != 0):
+            fail(f"main path launches: {counts}")
+        for key in ("scores", "query_ends", "target_ends"):
+            arr = res_e[key]
+            if arr.shape != (67, n_t) or arr.dtype != np.int32:
+                fail(f"{key}: shape {arr.shape} dtype {arr.dtype}")
+        if not np.array_equal(res_s["scores"], res_e["scores"]):
+            fail("score mode and end mode disagree")
+        if [r.score for r in single] != res_s["scores"][0].tolist():
+            fail("Aligner.align disagrees with align_arrays")
+        if res_s["scores"].min() < 0:
+            fail("negative sw score")
+        want = [(int(res_e["scores"][a, b]), int(res_e["query_ends"][a, b]),
+                 int(res_e["target_ends"][a, b])) for a, b in pairs]
+        for algo, ps in slice_pairs.items():
+            out = al.align_arrays(slice_q, db, mode="end", algorithm=algo,
+                                  start=lo, end=hi)
+            want += [tuple(int(out[k][a, b]) for k in
+                           ("scores", "query_ends", "target_ends"))
+                     for a, b in ps]
+
+        # --- 5b. the long-query path at full size -----------------------------
+        want_launches = {35000: {"ragged": 0, "q8": 0, "ragged_long": 18,
+                                 "sweep": 0},
+                         5000: {"ragged": 1, "q8": 0, "ragged_long": 0,
+                                "sweep": 0}}
+        for mod in kernel_mods.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        long_res, long_times = {}, {}
+        for n, q in long_q.items():
+            for mode in ("end", "score"):
+                before = launch_counts()
+                t1 = time.perf_counter()
+                long_res[n, mode] = al.align(q, db, mode=mode)
+                long_times[n, mode] = [time.perf_counter() - t1]
+                got = {k: v - before[k] for k, v in launch_counts().items()}
+                if got != want_launches[n]:
+                    fail(f"{n}-residue align({mode!r}) launches: {got}")
+        long_counts = launch_counts()
+        long_seconds = time.perf_counter() - t0
+        long_arrays = {}
+        for n in long_q:
+            hits = long_res[n, "end"]
+            arr = np.array(
+                [[r.score, r.query_end, r.target_end] for r in hits],
+                np.int64).T
+            if arr.shape != (3, n_t):
+                fail(f"{n}-residue align: shape {arr.shape}")
+            if [r.score for r in long_res[n, "score"]] != arr[0].tolist():
+                fail(f"{n}-residue align: score mode and end mode disagree")
+            if arr[0].min() < 0 or arr[1].max() >= n:
+                fail(f"{n}-residue align: scores or ends out of range")
+            long_arrays[n] = arr
+
+        # the plain versions on the 1,000-target slice
+        t1 = time.perf_counter()
+        fps = packing.pack_database_slice_flat(db, lo, hi)
+        flat_s, inv_s = dev_flat(fps), engine._flat_device(fps, dev)[5]
+        k3_plain = ragged_long.search_flat_long_reference(
+            long_enc[35000], S, *flat_s, GO, GE, "sw", True, fps.chunk)
+        profs = torch.from_numpy(ragged.make_profiles_host(
+            [long_enc[5000]], S, q_pad=ragged.fine_qpad(5000))).to(dev)
+        k1_plain = [x[0] for x in ragged.search_flat_reference(
+            profs, torch.tensor([5000], dtype=torch.int32, device=dev),
+            *flat_s, GO, GE, "sw", True, fps.chunk)]
+        for n, planes in ((35000, k3_plain), (5000, k1_plain)):
+            plain = torch.stack([x.reshape(-1) for x in planes])
+            plain = plain.index_select(1, inv_s).cpu().numpy()
+            if not np.array_equal(plain, long_arrays[n][:, lo:hi]):
+                fail(f"{n}-residue align differs from the plain version on "
+                     f"targets {lo}..{hi}")
+        slice_plain_seconds = time.perf_counter() - t1
+        long_want = []
+        for algo in ("nw", "hw", "ov"):
+            out = al.align_arrays([long_q[5000]], db, mode="end",
+                                  algorithm=algo, start=lo, end=hi)
+            long_want += [tuple(int(out[k][0, b - lo]) for k in
+                                ("scores", "query_ends", "target_ends"))
+                          for b in slice_short]
+        long_want = [tuple(int(x) for x in long_arrays[n][:, b])
+                     for n, b, algo in long_pairs if algo == "sw"] + long_want
+
+        t1 = time.perf_counter()
+        for name, js, ws, got in (("sampled", jobs, want, main_oracle),
+                                  ("long-query", long_jobs, long_want,
+                                   long_oracle)):
+            bad = [(j[5], w, tuple(g)) for j, w, g in zip(js, ws, got)
+                   if tuple(w) != tuple(g)]
+            if bad:
+                fail(f"{len(bad)} of {len(js)} {name} pairs differ from the "
+                     f"oracle, e.g. {bad[:3]}")
+        oracle_wait = time.perf_counter() - t1
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
     emit({"phase": "main_path", "launches": counts,
           "first_calls_seconds": first_seconds,
-          "oracle_pairs": len(jobs), "oracle_equal": True,
-          "oracle_seconds": time.perf_counter() - t1})
+          "oracle_pairs": len(jobs), "oracle_equal": True})
+    emit({"phase": "long_query_path", "launches": long_counts,
+          **{f"{n} {m} seconds": t[0] for (n, m), t in long_times.items()},
+          "seconds": long_seconds, "plain_slice_targets": [lo, hi],
+          "plain_equal": True, "plain_seconds": slice_plain_seconds,
+          "oracle_pairs": len(long_jobs), "oracle_equal": True,
+          "oracle_wait_seconds": oracle_wait,
+          "best_35000_sw": int(long_arrays[35000][0].max())})
 
     # --- 6. timings and kernels against plain versions at main shapes ----------
     enc = enc_q
@@ -325,6 +548,11 @@ def main():
     k2_in = engine._profiles_q8(enc, S, groups, lanes_q8, dev)
     k1_in = engine._profiles_for_cohort([enc[i] for i in v2_idx], S, dev)
     k1_single = engine._profiles_for_cohort([enc[0]], S, dev)
+    k1_fine = (
+        torch.from_numpy(ragged.make_profiles_host(
+            [long_enc[5000]], S, q_pad=ragged.fine_qpad(5000))).to(dev),
+        torch.tensor([5000], dtype=torch.int32, device=dev),
+    )
     shapes = {
         "q8": (q8.search_flat_q8, q8.search_flat_q8_reference,
                (*k2_in, *dev_flat(fpw)), fpw,
@@ -334,10 +562,13 @@ def main():
                    sum(len(enc[i]) for i in v2_idx)),
         "ragged_single": (ragged.search_flat, ragged.search_flat_reference,
                           (*k1_single, *dev_flat(fp)), fp, len(enc[0])),
+        "ragged_fine": (ragged.search_flat, ragged.search_flat_reference,
+                        (*k1_fine, *dev_flat(fp)), fp, 5000),
     }
 
-    def time_launches(fn, args, n):
-        fn(*args)  # warm-up
+    def time_launches(fn, args, n, warm=True):
+        if warm:
+            fn(*args)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -348,38 +579,82 @@ def main():
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / n
 
+    def bound(cells, n_bytes):
+        ops_ms = (OPS_PER_CELL_SW_SCORE * cells
+                  / (N_SMS * INT32_LANES_PER_SM * max_sm_mhz * 1e6) * 1e3)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        return {"bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
     results = {}
     for key, (kfn, pfn, base, fpk, query_rows) in shapes.items():
+        # the fine tier's ends were held against the plain version in
+        # phases 3 and 5b; a launch takes seconds there, so its score-mode
+        # comparison is its warm-up and two launches are timed
+        fine = key == "ragged_fine"
         errs = []
-        for ends in (True, False):
+        for ends in (False,) if fine else (True, False):
             args = (*base, GO, GE, "sw", ends, fpk.chunk)
             out, err = compare(key, kfn, pfn, args, f"main shape ends={ends}")
             errs.append(err)
-        ms = time_launches(kfn, args, 3)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        pfn(*args)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t1) * 1e3
+        ms = time_launches(kfn, args, 2 if fine else 3, warm=not fine)
+        plain_ms = plain_seconds[key] * 1e3  # the score-mode comparison's
         cells = query_rows * residues
-        ops = OPS_PER_CELL_SW_SCORE * cells
         out_bytes = 3 * 4 * out[0].numel()
         in_bytes = (fpk.flat_targets.size + fpk.lengths.nbytes
                     + sum(t.numel() * t.element_size() for t in base[:3]))
-        ops_ms = ops / (N_SMS * INT32_LANES_PER_SM * max_sm_mhz * 1e6) * 1e3
-        bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
         results[key] = {
             "ms": ms, "plain_ms": plain_ms, "max_abs_err": max(errs),
             "cells": cells, "gcups": cells / (ms * 1e-3) / 1e9,
-            "int_ops": ops, "bytes": in_bytes + out_bytes,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "int_ops": OPS_PER_CELL_SW_SCORE * cells,
+            "bytes": in_bytes + out_bytes,
+            **bound(cells, in_bytes + out_bytes),
         }
         emit({"phase": "kernel_timing", "kernel": key, "mode": "sw score",
               **results[key], **card})
 
-    def wall(fn, n):
-        fn()  # warm
+    # K3: the second 2048-row segment of the 35,000-residue query at full
+    # width, its state from the first; the plain time is that of the
+    # score-mode comparison's plain run
+    qseg = ragged_long.QSEG
+    prof = torch.from_numpy(ragged.make_profiles_host(
+        [long_enc[35000][:2 * qseg]], S, q_pad=2 * qseg)[0]).to(dev)
+    flat = dev_flat(fp)
+    zeros = torch.zeros(flat[0].shape, dtype=torch.int32, device=dev)
+    trk0 = torch.zeros((ragged_long.N_TRACK, *fp.lengths.shape[::2]),
+                       dtype=torch.int32, device=dev)
+    errs = []
+    for ends in (True, False):
+        seg0 = ragged_long.search_segment(
+            prof[:qseg], 35000, 0, *flat, zeros,
+            torch.full_like(zeros, ragged_long.NEG), trk0, GO, GE, "sw", ends,
+            fp.chunk)
+        args = (prof[qseg:], 35000, qseg, *flat, *seg0[3:], GO, GE, "sw",
+                ends, fp.chunk)
+        out, err = compare("ragged_long", ragged_long.search_segment,
+                           ragged_long.segment_reference, args,
+                           f"35,000-residue segment 1 ends={ends}")
+        errs.append(err)
+    ms = time_launches(ragged_long.search_segment, args, 3, warm=False)
+    cells = qseg * residues
+    n_bytes = (fp.flat_targets.size + fp.lengths.nbytes
+               + prof.numel() * 2  # the segment's half of the profile
+               + 4 * sum(t.numel() for t in (*args[8:11], *out)))
+    results["ragged_long"] = {
+        "ms": ms, "plain_ms": plain_seconds["ragged_long"] * 1e3,
+        "max_abs_err": max(errs + k3_errs), "cells": cells,
+        "gcups": cells / (ms * 1e-3) / 1e9,
+        "int_ops": OPS_PER_CELL_SW_SCORE * cells, "bytes": n_bytes,
+        **bound(cells, n_bytes),
+        "per_call_bound_ms": bound(35000 * residues, 18 * n_bytes)["bound_ms"],
+    }
+    emit({"phase": "kernel_timing", "kernel": "ragged_long",
+          "mode": "sw score, one 2048-row segment", **results["ragged_long"],
+          **card})
+
+    def wall(fn, n, warm=True):
+        if warm:
+            fn()
         times = []
         for _ in range(n):
             t1 = time.perf_counter()
@@ -389,11 +664,10 @@ def main():
 
     def counted(fn):
         """Launches of each kernel during one call of ``fn``."""
-        for mod in (ragged, q8, sweep):
+        for mod in kernel_mods.values():
             mod.launches = 0
         fn()
-        return {"ragged": ragged.launches, "q8": q8.launches,
-                "sweep": sweep.launches}
+        return launch_counts()
 
     def batch():
         return al.align_arrays(queries, db, mode="score")
@@ -406,18 +680,32 @@ def main():
     batch_s = wall(batch, 3)
     single_s = wall(one, 5)
     cells_batch = sum(len(q) for q in enc) * residues
+    # three calls of each long align: the end and score calls of phase 5b
+    # and more end calls (one of the 35,000-residue query, ~15 s each)
+    for n, q in long_q.items():
+        long_times[n, "end"] += wall(lambda: al.align(q, db, mode="end"),
+                                     1 if n == 35000 else 2, warm=False)
     emit({"phase": "end_to_end", "align_arrays_seconds": batch_s,
           "align_arrays_gcups": cells_batch / float(np.median(batch_s)) / 1e9,
           "align_arrays_launches": batch_launches,
           "single_align_ms": [t * 1e3 for t in single_s],
-          "single_align_launches": single_launches, **card})
+          "single_align_launches": single_launches,
+          **{f"align_{n}_{m}_seconds": t for (n, m), t in long_times.items()},
+          **{f"align_{n}_end_gcups":
+             n * residues / float(np.median(long_times[n, "end"])) / 1e9
+             for n in long_q}, **card})
 
     # --- 7. the kernels line, the card line, the result line ----------------
+    # launches: the main path's run plus the long-query path's run
     entries = [
         ("q8", "q8", "pyopal_tpu_torch/csrc/q8.cu",
-         "pyopal_tpu/ops/pallas_q8.py:138", counts["q8"]),
+         "pyopal_tpu/ops/pallas_q8.py:138", counts["q8"] + long_counts["q8"]),
         ("ragged", "ragged", "pyopal_tpu_torch/csrc/ragged.cu",
-         "pyopal_tpu/ops/pallas_ragged.py:400", counts["ragged"]),
+         "pyopal_tpu/ops/pallas_ragged.py:400",
+         counts["ragged"] + long_counts["ragged"]),
+        ("ragged_long", "ragged_long", "pyopal_tpu_torch/csrc/ragged_long.cu",
+         "pyopal_tpu/ops/pallas_ragged_long.py:49",
+         counts["ragged_long"] + long_counts["ragged_long"]),
     ]
     kernels = []
     for name, key, source, replaces, launches in entries:

@@ -8,8 +8,10 @@ Needleman-Wunsch global (``nw``) and two semi-global variants (``hw``,
 with the same public names, except the FASTA/database I/O of
 ``pyopal_tpu/io.py``, which is not ported yet.
 
-The searches run on an NVIDIA GPU through two hand-written CUDA kernels
-(``csrc/ragged.cu``, ``csrc/q8.cu``), built with ``nvcc`` at first use.
+The searches run on an NVIDIA GPU through three hand-written CUDA
+kernels (``csrc/ragged.cu``, ``csrc/q8.cu`` and, for queries beyond
+4096 residues that a single launch cannot take, the segmented
+``csrc/ragged_long.cu``), built with ``nvcc`` at first use.
 ``device="cpu"`` runs the same dispatch with the kernels' plain PyTorch
 versions instead.  The package imports PyTorch and numpy only.
 

@@ -9,7 +9,7 @@ runs the kernels' plain PyTorch versions.
 
 ``mode="full"`` and `align_top_k` need the traceback of
 ``pyopal_tpu/ops/traceback.py``, which is not ported yet (ROADMAP.md,
-"Modules to port", item 6): they raise `NotImplementedError`.  The
+"Modules to port"): they raise `NotImplementedError`.  The
 ``overflow`` strategies are validated for API parity and are no-ops:
 every score is computed exactly in int32.
 """
@@ -36,7 +36,7 @@ _ALGORITHMS = ("nw", "hw", "ov", "sw")
 
 _FULL_MODE_MESSAGE = (
     "mode='full' needs the traceback of pyopal_tpu/ops/traceback.py, "
-    "which is not ported yet (ROADMAP.md, 'Modules to port', item 6)"
+    "which is not ported yet (ROADMAP.md, 'Modules to port')"
 )
 
 
@@ -78,8 +78,9 @@ class Aligner:
 
     One `Aligner` holds a scoring matrix, affine-gap parameters and a
     device, and scores queries against every target of a database in
-    one kernel launch per query tier, one database sequence per GPU
-    thread.  Instances are stateless between calls and safe to share
+    one kernel launch per query tier (a query beyond 4096 residues: one
+    launch at its own tier, or one per 2048-row segment), one database
+    sequence per GPU thread.  Instances are stateless between calls and safe to share
     across threads; searches take the database's read lock for their
     duration.
 
@@ -271,11 +272,11 @@ class Aligner:
         """Full alignments for the best-scoring targets; not ported yet.
 
         It needs the traceback of ``pyopal_tpu/ops/traceback.py``
-        (ROADMAP.md, "Modules to port", item 6).
+        (ROADMAP.md, "Modules to port").
         """
         raise NotImplementedError(
             "align_top_k needs the traceback of pyopal_tpu/ops/traceback.py,"
-            " which is not ported yet (ROADMAP.md, 'Modules to port', item 6)"
+            " which is not ported yet (ROADMAP.md, 'Modules to port')"
         )
 
     def align_batch(

@@ -1,5 +1,5 @@
-// Affine-gap DP of one (query, target) pair, shared by the two kernels
-// (ragged.cu, q8.cu).
+// Affine-gap DP of one (query, target) pair, shared by the three kernels
+// (ragged.cu, q8.cu, ragged_long.cu).
 //
 // One thread owns one pair and walks the DP matrix column by column
 // (target positions, outer loop) and row by row inside a column (query
@@ -9,14 +9,23 @@
 // [query][row][lane] as int2, so the 32 threads of a warp (neighbouring
 // lanes) load and store one contiguous 256-byte run per row.
 //
+// A walk may cover only a segment of the query's rows (the long-query
+// kernel, ragged_long.cu): the row above the segment then comes from the
+// previous segment's bottom row (H and F at every column), the segment
+// writes its own bottom row for the next one, and the trackers (Track)
+// carry over between launches.
+//
 // Tie-breaking falls out of the visiting order: trackers update only on
 // strictly greater values, so the first optimum in (column, row) order
 // wins — max score, then min target column, then min query row, the
-// rule of the reference oracle (pyopal_tpu/ops/naive.py).  hw/ov read
-// the last query row after each column; ov reads the last target column
-// with the same strictly-greater rule and loses ties to the last row;
-// nw reads the terminal cell.  Each thread stops at its own target and
-// query length, so pad symbols and pad profile rows are never read.
+// rule of the reference oracle (pyopal_tpu/ops/naive.py).  Across
+// segments, sw also takes an equal score at a smaller column, which a
+// later segment (larger rows) can reach after an earlier one has moved
+// on.  hw/ov read the last query row after each column; ov reads the
+// last target column with the same strictly-greater rule and loses ties
+// to the last row; nw reads the terminal cell.  Each thread stops at its
+// own target and query length, so pad symbols and pad profile rows are
+// never read.
 //
 // All arithmetic is int32; NEG = -2^30 stays clear of wraparound because
 // every recurrence takes a max with a finite term before subtracting a
@@ -34,95 +43,146 @@ constexpr int ALPHA = 32;  // profile columns per row
 
 enum Algorithm { SW = 0, NW = 1, HW = 2, OV = 3 };
 
-// Scores one pair and writes (score, query end, target end).
+// Running optimum of one pair: best (sw: any cell, hw/ov: last row), cap
+// (nw: terminal cell, ov: last column) and their end rows/columns.
+struct Track {
+  int best, cap, bi, bj, ci;
+};
+
+// The trackers before the first column of a query of Q rows.
+template <int ALG>
+__device__ __forceinline__ Track track_start(int Q, int go, int ge) {
+  // H[Q][0]: the whole query as one first-column gap (also for Q == 0,
+  // an empty slot of the q8 kernel, as the reference computes it)
+  const int empty = -(go + (Q - 1) * ge);
+  return Track{ALG == HW ? empty : 0, ALG == NW ? empty : NEG, -1, -1, -1};
+}
+
+// Walks rows [row0, row0 + rows) of a query of Q rows against one target.
 //
-// prof: profile row 0 of this query; row i starts at prof + i * prof_stride
+// prof: profile row row0 of this query; row i at prof + i * prof_stride
 // tgt: target position 0 of this lane; position j at tgt + j * tgt_stride
 // scr: scratch row 0 of this (query, lane); row i at scr + i * scr_stride
+// SEG: hb_in/fb_in hold H and F of row row0 - 1 at every column (read when
+//   row0 > 0), hb_out/fb_out receive those of the walk's last row; all
+//   four are laid out like tgt.  Without SEG they are not touched.
+template <int ALG, bool ENDS, bool SEG>
+__device__ __forceinline__ void dp_walk(
+    const int* __restrict__ prof, int prof_stride, int row0, int rows, int Q,
+    const uint8_t* __restrict__ tgt, int tgt_stride, int len,
+    int2* __restrict__ scr, size_t scr_stride, int go, int ge,
+    const int* __restrict__ hb_in, const int* __restrict__ fb_in,
+    int* __restrict__ hb_out, int* __restrict__ fb_out, Track& t) {
+  constexpr bool kPenRow = ALG == NW;
+  constexpr bool kPenCol = ALG == NW || ALG == HW;
+  const bool top = !SEG || row0 == 0;  // the closed-form row 0 is above
+  const bool has_last = rows > 0 && (!SEG || row0 + rows == Q);
+
+  // column 0 of the DP matrix: the first-column boundary, E = -inf
+  for (int i = 0; i < rows; ++i) {
+    scr[i * scr_stride] =
+        make_int2(kPenCol ? -(go + (row0 + i) * ge) : 0, NEG);
+  }
+  // H of the row above at the previous column (column 0: its boundary)
+  int hleft = kPenCol && !top ? -(go + (row0 - 1) * ge) : 0;
+
+  for (int j = 0; j < len; ++j) {
+    const size_t jt = (size_t)j * tgt_stride;
+    const int* __restrict__ p = prof + tgt[jt];
+    const bool last_col = j == len - 1;
+    // the row above at columns j and j + 1, and F entering the walk
+    int hdiag, hup, f;
+    if (top) {
+      hdiag = (kPenRow && j > 0) ? -(go + (j - 1) * ge) : 0;
+      hup = kPenRow ? -(go + j * ge) : 0;
+      f = NEG;
+    } else {
+      hdiag = hleft;
+      hup = hb_in[jt];
+      f = fb_in[jt];
+      hleft = hup;
+    }
+    for (int i = 0; i < rows; ++i) {
+      const int2 he = scr[i * scr_stride];
+      const int e = max(he.x - go, he.y - ge);
+      int h = max(hdiag + __ldg(p + i * prof_stride), e);
+      if (ALG == SW) h = max(h, 0);
+      f = max(hup - go, f - ge);
+      h = max(h, f);
+      hdiag = he.x;
+      hup = h;
+      scr[i * scr_stride] = make_int2(h, e);
+      if (ALG == SW) {
+        if (ENDS) {
+          if (h > t.best || (SEG && h == t.best && j < t.bj)) {
+            t.best = h;
+            t.bi = row0 + i;
+            t.bj = j;
+          }
+        } else {
+          t.best = max(t.best, h);
+        }
+      }
+      if (ALG == OV && last_col && h > t.cap) {
+        t.cap = h;
+        t.ci = row0 + i;
+      }
+    }
+    if (SEG) {  // hup and f are now H and F of the walk's last row
+      hb_out[jt] = hup;
+      fb_out[jt] = f;
+    }
+    if (has_last) {  // hup is H at the query's last row
+      if ((ALG == HW || ALG == OV) && hup > t.best) {
+        t.best = hup;
+        t.bj = j;
+      }
+      if (ALG == NW && last_col) t.cap = hup;
+    }
+  }
+}
+
+// Writes (score, query end, target end) of a pair from its trackers.
+template <int ALG, bool ENDS>
+__device__ __forceinline__ void dp_finish(const Track& t, int Q, int len,
+                                          int* out_score, int* out_qe,
+                                          int* out_te) {
+  int score, qe, te;
+  if (ALG == SW) {
+    score = t.best;
+    qe = t.bi;
+    te = t.bj;
+  } else if (ALG == NW) {
+    score = t.cap;
+    qe = Q - 1;
+    te = len - 1;
+  } else if (ALG == HW) {
+    score = t.best;
+    qe = Q - 1;
+    te = t.bj;
+  } else {  // OV: ties go to the last-row end
+    const bool use_col = t.cap > t.best;
+    score = use_col ? t.cap : t.best;
+    qe = use_col ? t.ci : Q - 1;
+    te = use_col ? len - 1 : t.bj;
+  }
+  *out_score = score;
+  *out_qe = ENDS ? qe : -1;
+  *out_te = ENDS ? te : -1;
+}
+
+// Scores one whole pair (every query row in one walk).
 template <int ALG, bool ENDS>
 __device__ __forceinline__ void align_pair(
     const int* __restrict__ prof, int prof_stride, int Q,
     const uint8_t* __restrict__ tgt, int tgt_stride, int len,
     int2* __restrict__ scr, size_t scr_stride, int go, int ge,
     int* out_score, int* out_qe, int* out_te) {
-  constexpr bool kPenRow = ALG == NW;
-  constexpr bool kPenCol = ALG == NW || ALG == HW;
-  // H[Q][0]: the whole query as one first-column gap (also for Q == 0,
-  // an empty slot of the q8 kernel, as the reference computes it)
-  const int empty = -(go + (Q - 1) * ge);
-
-  // column 0 of the DP matrix: the first-column boundary, E = -inf
-  for (int i = 0; i < Q; ++i) {
-    scr[i * scr_stride] = make_int2(kPenCol ? -(go + i * ge) : 0, NEG);
-  }
-  int best = ALG == HW ? empty : 0;  // sw/hw/ov running optimum
-  int cap = ALG == NW ? empty : NEG;  // nw terminal / ov last column
-  int bi = -1, bj = -1, ci = -1;
-
-  for (int j = 0; j < len; ++j) {
-    const int* __restrict__ p = prof + tgt[(size_t)j * tgt_stride];
-    const bool last_col = j == len - 1;
-    // row 0 of the DP matrix at columns j and j + 1
-    int hdiag = (kPenRow && j > 0) ? -(go + (j - 1) * ge) : 0;
-    int hup = kPenRow ? -(go + j * ge) : 0;
-    int f = NEG;
-    for (int i = 0; i < Q; ++i) {
-      const int2 he = scr[i * scr_stride];
-      const int e = max(he.x - go, he.y - ge);
-      int t = max(hdiag + __ldg(p + i * prof_stride), e);
-      if (ALG == SW) t = max(t, 0);
-      f = max(hup - go, f - ge);
-      const int h = max(t, f);
-      hdiag = he.x;
-      hup = h;
-      scr[i * scr_stride] = make_int2(h, e);
-      if (ALG == SW) {
-        if (ENDS) {
-          if (h > best) {
-            best = h;
-            bi = i;
-            bj = j;
-          }
-        } else {
-          best = max(best, h);
-        }
-      }
-      if (ALG == OV && last_col && h > cap) {
-        cap = h;
-        ci = i;
-      }
-    }
-    if (Q > 0) {  // hup is now H at the last query row
-      if ((ALG == HW || ALG == OV) && hup > best) {
-        best = hup;
-        bj = j;
-      }
-      if (ALG == NW && last_col) cap = hup;
-    }
-  }
-
-  int score, qe, te;
-  if (ALG == SW) {
-    score = best;
-    qe = bi;
-    te = bj;
-  } else if (ALG == NW) {
-    score = cap;
-    qe = Q - 1;
-    te = len - 1;
-  } else if (ALG == HW) {
-    score = best;
-    qe = Q - 1;
-    te = bj;
-  } else {  // OV: ties go to the last-row end
-    const bool use_col = cap > best;
-    score = use_col ? cap : best;
-    qe = use_col ? ci : Q - 1;
-    te = use_col ? len - 1 : bj;
-  }
-  *out_score = score;
-  *out_qe = ENDS ? qe : -1;
-  *out_te = ENDS ? te : -1;
+  Track t = track_start<ALG>(Q, go, ge);
+  dp_walk<ALG, ENDS, false>(prof, prof_stride, 0, Q, Q, tgt, tgt_stride, len,
+                            scr, scr_stride, go, ge, nullptr, nullptr,
+                            nullptr, nullptr, t);
+  dp_finish<ALG, ENDS>(t, Q, len, out_score, out_qe, out_te);
 }
 
 // Instantiates KERNEL<ALG, ENDS> for the runtime (algorithm, with_ends)

@@ -4,8 +4,10 @@
 - `sweep`  — int32 column sweep in plain PyTorch (port of ``xla.py``).
 - `ragged` — kernel K1 (``csrc/ragged.cu``) and its plain version.
 - `q8`     — kernel K2 (``csrc/q8.cu``) and its plain version.
+- `ragged_long` — kernel K3 (``csrc/ragged_long.cu``), the segmented
+  search of one long query, and its plain version.
 - `engine` — routing, launches and result assembly.
 
-`packing` builds the flat layout both kernels read; `_cuda` builds and
+`packing` builds the flat layout the kernels read; `_cuda` builds and
 binds the kernels.
 """

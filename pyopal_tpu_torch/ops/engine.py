@@ -4,25 +4,31 @@ Port of the score/end part of ``pyopal_tpu/ops/engine.py``:
 `search_scores_batch` (l.577), `search_scores`, `search` (l.995),
 `plan_tier_launches` (l.271) with its constants, the cohort dispatch
 (`_search_batch_pallas`, l.347, here `_search_batch_kernels`), the
-result assembly (`_assemble_flat*`), `_empty_query_results`,
-`_fp32_exact_domain` and the profile cache.
+long-query dispatch (`_search_long_pallas`, l.690, here
+`_search_long_kernels`), the result assembly (`_assemble_flat*`),
+`_empty_query_results`, `_fp32_exact_domain` and the profile cache.
 
 Routing is decided before any launch and never after a failure:
 
 - calls inside the reference's kernel predicate (matrix entries within
-  +-256, the exact-value domain of `_fp32_exact_domain`, an alphabet of
-  at most 31 letters, queries of 1..4096 residues) take the kernels:
-  full groups of 8 same-tier queries (tiers 64-512) the q8 kernel, the
-  rest the ragged kernel, exactly as `plan_tier_launches` splits them
-  in both packages.  On CUDA these are the hand-written kernels; on the
-  CPU the same dispatch runs their plain versions.
+  +-256, the exact-value domain of `_fp32_exact_domain`, which also
+  excludes negative gap penalties, and an alphabet of at most 31
+  letters) take the kernels.  Queries of 1..4096 residues go by
+  query-tier cohort: full groups of 8 same-tier queries (tiers 64-512)
+  to the q8 kernel (K2), the rest to the ragged kernel (K1), exactly as
+  `plan_tier_launches` splits them in both packages.  A longer query
+  goes alone: one K1 launch at its fine tier where
+  `ragged.supports_fine` admits it, else the segmented kernel (K3,
+  `ragged_long`), one launch per 2048 rows.  On CUDA these are the
+  hand-written kernels; on the CPU the same dispatch runs their plain
+  versions.
 - everything else takes the int32 column sweep (`ops.sweep`), on the
   same device: empty queries get `_empty_query_results`.  The reference
-  sends long queries and 32-letter alphabets to kernels not ported yet
-  (``pallas_ragged_long``, the v1 ragged kernels).
+  sends 32-letter alphabets to kernels not ported yet (the v1 ragged
+  kernels).
 
 Results are assembled into global target order on the device and come
-back to the host in one copy per launch.
+back to the host in one copy per launch (per long query).
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import numpy as np
 import torch
 
 from ..results import build_end_results, build_score_results
-from . import packing, q8, ragged, sweep
+from . import packing, q8, ragged, ragged_long, sweep
 
 
 def _flat_device(fp: packing.FlatPacked, device: torch.device):
@@ -369,6 +375,10 @@ def search_scores_batch(
     kernel_ok = [
         use_kernels and ragged.supports(q.shape[0]) for q in queries_enc
     ]
+    long_idx = [
+        i for i, q in enumerate(queries_enc)
+        if use_kernels and q.shape[0] > 0 and not kernel_ok[i]
+    ]
 
     scores = np.zeros((nq, n), dtype=np.int32)
     q_ends = np.full((nq, n), -1, dtype=np.int32)
@@ -383,9 +393,15 @@ def search_scores_batch(
         for k, i in enumerate(dev_idx):
             scores[i], q_ends[i], t_ends[i] = s[k], qe[k], te[k]
 
+    for i in long_idx:
+        scores[i], q_ends[i], t_ends[i] = _search_long_kernels(
+            database, start, end, queries_enc[i], matrix, gap_open,
+            gap_extend, algorithm, with_ends, device,
+        )
+
     sweep_idx = [
-        i for i, ok in enumerate(kernel_ok)
-        if not ok and queries_enc[i].shape[0] > 0
+        i for i, q in enumerate(queries_enc)
+        if not use_kernels and q.shape[0] > 0
     ]
     if sweep_idx:
         blocks = _search_batch_sweep(
@@ -401,6 +417,39 @@ def search_scores_batch(
                 database, start, end, gap_open, gap_extend, algorithm
             )
     return scores, q_ends, t_ends
+
+
+def _search_long_kernels(
+    database, start, end, query_enc, matrix, go, ge, algorithm, with_ends,
+    device,
+):
+    """One query beyond the power-of-two tiers: a single K1 launch at its
+    fine tier (`ragged.fine_qpad`) where `ragged.supports_fine` admits
+    it, else the segmented kernel K3 (`ragged_long.search_flat_long`).
+
+    Returns the three result planes as numpy arrays in slice-local
+    target order, copied back in one transfer.
+    """
+    fp = packing.pack_database_slice_flat(database, start, end)
+    flat_t, lengths, bos, cos, los, inv_pos = _flat_device(fp, device)
+    Q = int(query_enc.shape[0])
+    if ragged.supports_fine(Q, algorithm, with_ends):
+        profs = ragged.make_profiles_host(
+            [query_enc], matrix, q_pad=ragged.fine_qpad(Q)
+        )
+        s, qe, te = ragged.search_flat(
+            torch.as_tensor(profs).to(device),
+            torch.tensor([Q], dtype=torch.int32, device=device),
+            flat_t, lengths, bos, cos, los, int(go), int(ge), algorithm,
+            with_ends, chunk=fp.chunk,
+        )
+    else:
+        s, qe, te = ragged_long.search_flat_long(
+            query_enc, matrix, flat_t, lengths, bos, cos, los, int(go),
+            int(ge), algorithm, with_ends, chunk=fp.chunk,
+        )
+    planes = torch.stack([s.reshape(-1), qe.reshape(-1), te.reshape(-1)])
+    return tuple(planes.index_select(1, inv_pos).cpu().numpy())
 
 
 def search_scores(

@@ -14,7 +14,10 @@ Three things live here:
   the plain version instead.  A CUDA tensor never falls back.
 - `search_flat_reference`, the plain PyTorch version of the same
   function (a column sweep, `pyopal_tpu_torch.ops.sweep`).
-- the host-side profile builder and tier helpers shared with the engine.
+- the host-side profiles and tier helpers shared with the engine,
+  including the fine tiers of single long queries (`fine_qpad`,
+  `supports_fine`, ``pallas_ragged.py`` l.113-152), which K1 takes in
+  one launch.
 
 Output semantics (all four algorithms, score-only or with ends) follow
 the reference kernel exactly, including the empty-target values; in
@@ -32,9 +35,11 @@ ALPHA = 32  # profile columns (MAX_ALPHABET_SIZE)
 #: profile entries of rows past a query's length and of pad column 31
 #: (the reference's ``pallas_kernel.PAD_SCORE``, as an integer)
 PAD_SCORE = -4_000_000
-#: largest query tier the kernel takes (reference
-#: ``RAGGED_MAX_QPAD_STRIP``)
+#: largest power-of-two query tier (`supports`; reference
+#: ``RAGGED_MAX_QPAD_STRIP``); single long queries go beyond it at fine
+#: tiers (`supports_fine`)
 MAX_QPAD = 4096
+LANES = 128
 
 ALGO_CODES = {"sw": 0, "nw": 1, "hw": 2, "ov": 3}
 #: largest H/E scratch (bytes) one kernel launch may use; a call that
@@ -61,10 +66,50 @@ def profile_qpad(Q: int) -> int:
     return tier
 
 
-def make_profiles_host(queries_enc, matrix) -> np.ndarray:
-    """Stacked ``(n_q, Q_pad, 32)`` int32 profiles at a common tier."""
+#: fine-tier quantum for single long queries (reference ``FINE_QUANTUM``)
+FINE_QUANTUM = 512
+
+#: The reference's budget for a fine-tier launch: the TPU's 16 MB scoped
+#: VMEM less headroom, in bytes.  Copied unchanged, like
+#: `v2_scratch_bytes`, so that both packages route a long query alike and
+#: their launch counts compare; it says nothing about the H100.
+V2_FINE_BUDGET = 13_500_000
+
+
+def fine_qpad(Q: int) -> int:
+    """Pad a long query to the `FINE_QUANTUM` grid (at least one
+    quantum) instead of a power of two."""
+    return max(-(-Q // FINE_QUANTUM) * FINE_QUANTUM, FINE_QUANTUM)
+
+
+def v2_scratch_bytes(Q_pad: int, algorithm: str, with_ends: bool) -> int:
+    """Bytes of ``(Q_pad, LANES)`` scratch the reference kernel declares
+    (H, E, and the trackers of the algorithm and mode)."""
+    n = 2  # H, E
+    if algorithm != "nw":
+        n += 1  # best
+        if with_ends:
+            n += 1  # bestj
+    if algorithm in ("nw", "ov"):
+        n += 1  # cap
+    return n * Q_pad * LANES * 4
+
+
+def supports_fine(Q: int, algorithm: str, with_ends: bool) -> bool:
+    """Whether a single long query takes one K1 launch at its fine tier;
+    beyond this the segmented kernel (`ragged_long`) takes over."""
+    if Q <= 0:
+        return False
+    need = v2_scratch_bytes(fine_qpad(Q), algorithm, with_ends)
+    return need <= V2_FINE_BUDGET
+
+
+def make_profiles_host(queries_enc, matrix, q_pad=None) -> np.ndarray:
+    """Stacked ``(n_q, Q_pad, 32)`` int32 profiles at a common tier:
+    the power-of-two tier of the longest query, or ``q_pad`` rows (a
+    fine tier)."""
     qmax = max(len(q) for q in queries_enc)
-    Q_pad = profile_qpad(max(qmax, 8))
+    Q_pad = profile_qpad(max(qmax, 8)) if q_pad is None else q_pad
     profs = np.full((len(queries_enc), Q_pad, ALPHA), PAD_SCORE, np.int32)
     S = np.asarray(matrix, dtype=np.int32)
     for i, q in enumerate(queries_enc):
@@ -149,7 +194,8 @@ def search_flat(
     exceed `SCRATCH_BYTES` (`launch_plan`); each adds one to `launches`.
 
     Arguments:
-        profs: ``(n_q, Q_pad, 32)`` int32 profiles (`make_profiles_host`).
+        profs: ``(n_q, Q_pad, 32)`` int32 profiles (`make_profiles_host`)
+            at a power-of-two tier or, for one long query, a fine tier.
         qlens: ``(n_q,)`` int32 query lengths.
         flat_targets: ``(total_rows, lanes)`` uint8 symbols.
         lengths: ``(n_blocks, 1, lanes)`` int32 target lengths.
@@ -168,8 +214,6 @@ def search_flat(
     if profs.ndim != 3 or profs.shape[2] != ALPHA:
         raise ValueError(f"profs must be (n_q, Q_pad, {ALPHA})")
     n_q, q_pad, _ = profs.shape
-    if q_pad > MAX_QPAD:
-        raise ValueError(f"query tier {q_pad} exceeds {MAX_QPAD}")
     if qlens.shape != (n_q,) or qlens.device != dev:
         raise ValueError("qlens must be (n_q,) on the profiles' device")
     if not (profs.is_contiguous() and qlens.is_contiguous()):

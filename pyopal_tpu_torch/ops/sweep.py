@@ -14,7 +14,7 @@ F[i-1])`` folds to ``F[i] = max(tmp[i-1]-go, F[i-1]-min(go, ge))``).
 Three callers share `sweep_batch`:
 
 - the engine's route for what the kernels do not take (matrices beyond
-  +-256 or outside the exact domain, queries beyond 4096, 32-letter
+  +-256 or outside the exact domain, negative gap penalties, 32-letter
   alphabets), through `search`, which counts `launches`;
 - the plain versions of the two kernels
   (`pyopal_tpu_torch.ops.ragged.search_flat_reference`,
@@ -49,6 +49,29 @@ def block_row_offsets(bos: torch.Tensor, n_blocks: int, chunk: int):
     )
 
 
+def flat_index(lengths, bos, chunk, total_rows):
+    """``(T_max, n_blocks * lanes)`` positions in a flat-packed array.
+
+    Entry ``[j, n]`` is the offset, in the flattened ``(total_rows,
+    lanes)`` array, of column ``j`` of the target of block ``n //
+    lanes``, lane ``n % lanes``; past a target's length it is clamped
+    into the array and names some other position.
+    """
+    n_blocks, _, lanes = lengths.shape
+    lens = lengths.reshape(-1)
+    t_max = int(lens.max()) if lens.numel() else 0
+    n = lens.shape[0]
+    dev = lengths.device
+    if t_max == 0 or n == 0:
+        return torch.zeros((0, n), dtype=torch.int64, device=dev)
+    row_off = block_row_offsets(bos, n_blocks, chunk)
+    lane_ids = torch.arange(n, device=dev)
+    base = row_off.long()[lane_ids // lanes]
+    rows = torch.arange(t_max, device=dev)[:, None] + base[None, :]
+    rows = rows.clamp_(max=total_rows - 1)
+    return rows * lanes + (lane_ids % lanes)[None, :]
+
+
 def columns_from_flat(flat_targets, lengths, bos, chunk):
     """``(T_max, n_blocks * lanes)`` symbol matrix of a flat pack.
 
@@ -56,19 +79,7 @@ def columns_from_flat(flat_targets, lengths, bos, chunk):
     ``n % lanes``; rows past a target's length hold arbitrary symbols
     (the sweep never reads them).
     """
-    n_blocks, _, lanes = lengths.shape
-    lens = lengths.reshape(-1)
-    t_max = int(lens.max()) if lens.numel() else 0
-    n = lens.shape[0]
-    dev = flat_targets.device
-    if t_max == 0 or n == 0:
-        return torch.zeros((0, n), dtype=torch.uint8, device=dev)
-    row_off = block_row_offsets(bos, n_blocks, chunk)
-    lane_ids = torch.arange(n, device=dev)
-    base = row_off.long()[lane_ids // lanes]
-    rows = torch.arange(t_max, device=dev)[:, None] + base[None, :]
-    rows = rows.clamp_(max=flat_targets.shape[0] - 1)
-    idx = rows * lanes + (lane_ids % lanes)[None, :]
+    idx = flat_index(lengths, bos, chunk, flat_targets.shape[0])
     return flat_targets.reshape(-1)[idx]
 
 

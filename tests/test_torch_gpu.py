@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from pyopal_tpu_torch.matrices import ScoringMatrix
-from pyopal_tpu_torch.ops import packing, q8, ragged
+from pyopal_tpu_torch.ops import packing, q8, ragged, ragged_long
 
 pytestmark = pytest.mark.cuda
 
@@ -124,3 +124,69 @@ def test_kernel_split_by_scratch_budget_matches_plain(
     before = mod.launches
     _equal(fn(*args), plain(*args))
     assert mod.launches == before + want
+
+
+def _segments_equal(q, fp, dev, algo, with_ends, qseg):
+    """Every segment of query ``q``: K3 against its plain version on the
+    same inputs (the kernel's state from the segment before), all six
+    outputs.  Returns the kernel launches made."""
+    flat = _flat(fp, dev)
+    n_seg = -(-len(q) // qseg)
+    prof = torch.from_numpy(
+        ragged.make_profiles_host([q], S, q_pad=n_seg * qseg)[0]
+    ).to(dev)
+    hb = torch.zeros(flat[0].shape, dtype=torch.int32, device=dev)
+    fb = torch.full_like(hb, ragged_long.NEG)
+    trk = torch.zeros((5, fp.n_blocks, fp.lengths.shape[2]),
+                      dtype=torch.int32, device=dev)
+    before = ragged_long.launches
+    for s in range(n_seg):
+        args = (prof[s * qseg : (s + 1) * qseg], len(q), s * qseg, *flat,
+                hb, fb, trk, 3, 1, algo, with_ends, fp.chunk)
+        out = ragged_long.search_segment(*args)
+        _equal(out, ragged_long.segment_reference(*args))
+        hb, fb, trk = out[3:]
+    return ragged_long.launches - before
+
+
+@pytest.mark.parametrize("with_ends", [False, True])
+@pytest.mark.parametrize("algo", ["nw", "hw", "ov", "sw"])
+def test_ragged_long_kernel_matches_plain(dev, algo, with_ends):
+    """K3 segment by segment at 32-row segments (2 to 4 per query),
+    including the boundary rows and trackers it hands on."""
+    rng = np.random.default_rng(6)
+    seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in LENGTHS]
+    fp = packing.pack_sequences_flat(seqs)
+    for Q in (33, 70, 100):
+        q = rng.integers(0, 20, Q).astype(np.uint8)
+        q[3:33] = seqs[8][100:130]  # a high-scoring stretch
+        assert _segments_equal(q, fp, dev, algo, with_ends, 32) == -(-Q // 32)
+
+
+def test_ragged_long_split_by_scratch_budget_matches_plain(dev, monkeypatch):
+    """A scratch budget of 128 lanes x 64 rows splits each of three
+    64-row segments into one launch per 128 lanes."""
+    rng = np.random.default_rng(8)
+    seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in LENGTHS * 30]
+    fp = packing.pack_sequences_flat(seqs)
+    q = rng.integers(0, 20, 192).astype(np.uint8)
+    monkeypatch.setattr(ragged, "SCRATCH_BYTES", 8 * 64 * 128)
+    n_launches = _segments_equal(q, fp, dev, "sw", True, 64)
+    assert n_launches == 3 * -(-fp.lengths.size // 128) > 3
+
+
+@pytest.mark.parametrize("algo", ["nw", "sw"])
+def test_ragged_kernel_fine_tier_matches_plain(dev, algo):
+    """K1 at the 4,608-row fine tier of one 4,200-residue query."""
+    rng = np.random.default_rng(9)
+    seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in LENGTHS]
+    q = rng.integers(0, 20, 4200).astype(np.uint8)
+    fp = packing.pack_sequences_flat(seqs)
+    profs = ragged.make_profiles_host([q], S, q_pad=ragged.fine_qpad(4200))
+    assert profs.shape == (1, 4608, 32)
+    args = (
+        torch.from_numpy(profs).to(dev),
+        torch.tensor([4200], dtype=torch.int32, device=dev),
+        *_flat(fp, dev), 3, 1, algo, True, fp.chunk,
+    )
+    _equal(ragged.search_flat(*args), ragged.search_flat_reference(*args))

@@ -16,7 +16,7 @@ import pyopal_tpu as po
 import pyopal_tpu_torch as pt
 from pyopal_tpu.ops import engine as ref_engine
 from pyopal_tpu_torch import convert
-from pyopal_tpu_torch.ops import engine, naive, q8, ragged, sweep
+from pyopal_tpu_torch.ops import engine, naive, q8, ragged, ragged_long, sweep
 
 
 def _case(seed):
@@ -147,18 +147,22 @@ def test_sweep_takes_what_the_kernels_do_not():
 
 
 def test_long_query_takes_the_sweep():
-    """A query beyond 4096 residues (the reference's K3 route) takes the
-    sweep; the short query of the same batch stays on the kernels."""
+    """A query beyond 4096 residues no longer takes the sweep (the name
+    is kept from when it did): it takes K1 alone at its fine tier, 4608
+    rows, and the short query of the same batch its own K1 launch."""
     rng = np.random.default_rng(4)
     al = pt.Aligner(device="cpu")
     plain = al.alphabet.letters[:20]
     query = "".join(rng.choice(list(plain), 4100))
     targets = ["".join(rng.choice(list(plain), n)) for n in (0, 1, 9, 30)]
     db = pt.Database(targets)
-    before = (sweep.launches, ragged.plain_calls)
+    assert ragged.fine_qpad(4100) == 4608
+    assert ragged.supports_fine(4100, "sw", True)
+    before = (sweep.launches, ragged.plain_calls, ragged_long.plain_calls)
     res = al.align_batch([query, query[:10]], db, mode="end")
-    assert sweep.launches - before[0] == 1
-    assert ragged.plain_calls - before[1] == 1
+    assert sweep.launches == before[0]
+    assert ragged.plain_calls - before[1] == 2
+    assert ragged_long.plain_calls == before[2]
     S = al.scoring_matrix.int_data()
     enc = lambda s: np.frombuffer(db.alphabet.encode(s), np.uint8)  # noqa
     for qq, hits in zip([query, query[:10]], res):
