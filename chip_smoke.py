@@ -9,17 +9,19 @@ Phases (the first failure ends the run with a nonzero exit code):
 
 1. the card: name and power limit from ``nvidia-smi``, torch and CUDA
    versions;
-2. the build: the three kernels (``pyopal_tpu_torch/csrc/ragged.cu``,
-   ``q8.cu``, ``ragged_long.cu``) compiled with ``nvcc`` for ``sm_90a``,
-   in parallel;
-3. each kernel against its plain PyTorch version on the card: all four
-   algorithms in score and end modes at several query tiers, with edge
-   target lengths and a 2500-residue self-hit (score > 12000), and calls
-   that a small scratch budget splits into several launches; K1 at the
-   fine tiers 4608/5120/6144; K3 segment by segment (scores, ends, the
-   boundary rows and the trackers it hands on) at 32- and 64-row
-   segments, and at 2048 rows for a 6,500-residue query against two
-   4,000-residue slices of itself;
+2. the build: the four kernels (``pyopal_tpu_torch/csrc/ragged.cu``,
+   ``q8.cu``, ``ragged_long.cu``, ``group.cu``) compiled with ``nvcc``
+   for ``sm_90a``, in parallel;
+3. each kernel against its plain PyTorch version on the card, every
+   output plane in score and end modes: all four algorithms at several
+   query tiers, with edge target lengths and a 2500-residue self-hit
+   (score > 12000), and calls that a small scratch budget splits into
+   several launches; K1 at the fine tiers 4608/5120/6144; K3 segment by
+   segment (scores, ends, the boundary rows and the trackers it hands
+   on) at 32- and 64-row segments, and at 2048 rows for a 6,500-residue
+   query against two 4,000-residue slices of itself; K6 (the grouped
+   kernel) at queries of 13, 256 and 1,000 residues with gaps 3/1, 1/3
+   and 0/0 on every lane, padding lanes included;
 4. the golden values through `pyopal_tpu_torch.Aligner` on ``cuda``;
 5. the main path at full size: a synthetic 12,071-sequence database
    (the generator of ``bench.py``, seed 12071) searched with 67
@@ -33,12 +35,29 @@ Phases (the first failure ends the run with a nonzero exit code):
    5,120 fine tier) through ``Aligner.align`` in end and score modes,
    counted the same way, held against the plain versions on a
    1,000-target slice and against the oracle on the shortest targets;
+   then the sharded path (``pyopal_tpu_torch.parallel``) on the same
+   database: ``align_arrays_sharded`` over a 4-shard mesh on the card in
+   sw score and end modes (K2 and K1 once per shard per cohort), equal to
+   ``align_arrays``; ``sharded_search_group`` with K6 over the grouped
+   pack of the whole database for one query, equal to ``Aligner.align``
+   in end mode, each of its 40 K6 launches (4 shards x 10 length
+   buckets) held against K6's plain version on the same tensors, and
+   ``top_k_merge`` against numpy's; two ranks of a
+   ``gloo`` group on the card (processes of this script, 2 shards each)
+   and a one-rank ``nccl`` group, each equal to the single-process
+   result (two ``nccl`` ranks where there are two cards);
 6. timings with CUDA events after a warm-up, each kernel held against
    its plain version at the main path's shapes (K3: one 2048-row
-   segment of the 35,000-residue query), the bound of each kernel,
-   end-to-end throughput and long-query call times, and each kernel's
-   launches in one ``align_arrays`` and one ``align`` call, counted;
+   segment of the 35,000-residue query; K6: the sharded path's 40
+   launches for one query, and the whole database stacked as one group),
+   the bound of each kernel,
+   end-to-end throughput, long-query and sharded call times, and each
+   kernel's launches in one ``align_arrays`` and one ``align`` call,
+   counted;
 7. the ``kernels`` line, then the card line, then the result line.
+
+With ``--rank R --world N --backend B --init FILE --out FILE`` the
+script is instead one rank of phase 5's process groups.
 
 Every number printed is measured in this run on this card; the card's
 name and power limit stand beside each timing.
@@ -86,6 +105,59 @@ def build_database(rng, n=12071, mean_len=350):
     return seqs
 
 
+def main_workload():
+    """The main path's database and its 67 queries of 256 residues."""
+    rng = np.random.default_rng(12071)
+    db_seqs = build_database(rng)
+    letters = "ARNDCQEGHILKMFPSTWYV"
+    queries = [
+        "".join(letters[i] for i in rng.integers(0, 20, 256))
+        for _ in range(67)
+    ]
+    return db_seqs, queries
+
+
+def rank_main(argv):
+    """One rank of a process group: ``align_arrays_sharded`` in end mode
+    over 2 shards per rank on this rank's card; writes the result, the
+    payload bytes it packed and its seconds to ``--out`` (``.npz``)."""
+    import argparse
+
+    import torch
+    import pyopal_tpu_torch as pt
+    from pyopal_tpu_torch.parallel import (
+        ShardedFlat, align_arrays_sharded, device_mesh,
+        initialize_distributed,
+    )
+
+    ap = argparse.ArgumentParser()
+    for name in ("--rank", "--world"):
+        ap.add_argument(name, type=int, required=True)
+    for name in ("--backend", "--init", "--out"):
+        ap.add_argument(name, required=True)
+    a = ap.parse_args(argv)
+    if a.backend == "nccl":
+        torch.cuda.set_device(a.rank % torch.cuda.device_count())
+    t0 = time.perf_counter()
+    initialize_distributed(a.backend, f"file://{a.init}", a.world, a.rank)
+    db_seqs, queries = main_workload()
+    db = pt.Database(db_seqs)
+    mesh = device_mesh(2 * a.world)
+    t1 = time.perf_counter()
+    out = align_arrays_sharded(queries, db, mode="end", mesh=mesh)
+    t2 = time.perf_counter()
+    packs = [v for v in db._pack_cache.values() if isinstance(v, ShardedFlat)]
+    np.savez(
+        a.out, **out, seconds=t2 - t1, setup_seconds=t1 - t0,
+        local_shards=sorted({s for p in packs for s in p.payloads}),
+        local_bytes=sum(p.local_payload_bytes for p in packs),
+        total_bytes=sum(p.rows_max * p.lanes * p.n_shards for p in packs),
+        device=str(mesh.devices[2 * a.rank]),
+    )
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def smi(query):
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -102,8 +174,12 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import pyopal_tpu_torch as pt
-    from pyopal_tpu_torch.ops import _cuda, engine, naive, packing, q8
-    from pyopal_tpu_torch.ops import ragged, ragged_long, sweep
+    from pyopal_tpu_torch.ops import _cuda, engine, group, naive, packing
+    from pyopal_tpu_torch.ops import q8, ragged, ragged_long, sweep
+    from pyopal_tpu_torch.parallel import (
+        align_arrays_sharded, device_mesh, initialize_distributed,
+    )
+    from pyopal_tpu_torch.parallel import sharded
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -224,6 +300,7 @@ def main():
             if algo == "sw":
                 pos = int(fp_big.inv_pos[len(seqs)])
                 self_score = int(out[0].reshape(-1)[pos])
+                self_hit = [int(o.reshape(-1)[pos]) for o in out]  # ends
                 if self_score <= 12000:
                     fail(f"2500-aa self-hit scored {self_score}")
     k2_cases = [
@@ -315,10 +392,62 @@ def main():
     sw_hits = long_hits["sw ends=True"]
     if min(h[0] for h in sw_hits) <= 12000:
         fail(f"4,000-residue self-hits scored {sw_hits}")
+
+    # K6: one query x a group of two 128-lane blocks at t_pad 512, every
+    # lane and plane: edge lengths, zero-length (padding) lanes, symbols
+    # past each length, queries with and without pad rows
+    glens = rng.integers(0, 301, (2, 128)).astype(np.int32)
+    glens[0, :9] = [0, 1, 31, 32, 33, 255, 256, 257, 300]
+    glens[1, -3:] = 0
+    gtgt = rng.integers(0, 20, (2, 512, 128)).astype(np.uint8)
+    gtgt_d = torch.from_numpy(gtgt).to(dev)
+    glens_d = torch.from_numpy(glens).to(dev)
+    k6_launches = group.launches
+    for Q in (13, 256, 1000):
+        q = rng.integers(0, 20, Q).astype(np.uint8)
+        q[:10] = gtgt[0, 20:30, 7]
+        pq = group.make_profile(q, S, dev)
+        for algo in algos:
+            for ends in (False, True):
+                for gaps in ((3, 1), (1, 3), (0, 0)):
+                    compare("group", group.search_group,
+                            group.search_group_reference,
+                            (pq, gtgt_d, glens_d, *gaps, algo, ends),
+                            f"K6 Q={Q} {algo} ends={ends} gaps={gaps}")
+                    n_checked += 1
+        if Q == 13:  # one launch per 128 lanes
+            ragged.SCRATCH_BYTES = 8 * pq[0].shape[0] * 128
+            before = group.launches
+            compare("group", group.search_group,
+                    group.search_group_reference,
+                    (pq, gtgt_d.to(torch.int32), glens_d, GO, GE, "sw",
+                     True), "K6 split by lanes")
+            split_launches["group by lanes"] = group.launches - before
+            ragged.SCRATCH_BYTES = budget
+            n_checked += 1
+    if split_launches["group by lanes"] != 2:
+        fail(f"K6 split: {split_launches}")
+    # the 2500-residue self-hit: its group (t_pad 2560) of the grouped pack
+    gp = packing.pack_sequences(seqs + [big])
+    g = next(g for g in gp.groups if (g.indices == len(seqs)).any())
+    pq = group.make_profile(big, S, dev)
+    lane = np.argwhere(g.indices.reshape(-1) == len(seqs))[0, 0]
+    for algo, ends in (("sw", False), ("sw", True), ("ov", True)):
+        out, _ = compare(
+            "group", group.search_group, group.search_group_reference,
+            (pq, torch.from_numpy(g.targets).to(dev),
+             torch.from_numpy(g.lengths).to(dev), GO, GE, algo, ends),
+            f"K6 2500-residue self-hit {algo} ends={ends}")
+        n_checked += 1
+        hit = [int(o.reshape(-1)[lane]) for o in out]
+        if algo == "sw" and ends and hit != self_hit:
+            fail(f"K6 2500-aa self-hit: {hit}, K1's: {self_hit}")
+    k6_launches = group.launches - k6_launches
     emit({"phase": "kernels_vs_plain", "cases": n_checked, "equal": True,
           "self_hit_score": self_score, "split_launches": split_launches,
           "k3_segment_launches": k3_launches,
           "k3_self_hits_score_qend_tend": long_hits,
+          "k6_launches": k6_launches,
           "seconds": time.perf_counter() - t0})
 
     # --- 4. golden values ------------------------------------------------------
@@ -336,14 +465,9 @@ def main():
     emit({"phase": "golden", **golden})
 
     # --- 5. the main path at full size -----------------------------------------
-    rng = np.random.default_rng(12071)
     t0 = time.perf_counter()
-    db_seqs = build_database(rng)
+    db_seqs, queries = main_workload()
     letters = "ARNDCQEGHILKMFPSTWYV"
-    queries = [
-        "".join(letters[i] for i in rng.integers(0, 20, 256))
-        for _ in range(67)
-    ]
     db = pt.Database(db_seqs)
     n_t = len(db)
     residues = db.total_length
@@ -352,7 +476,7 @@ def main():
           "seconds": time.perf_counter() - t0})
 
     kernel_mods = {"ragged": ragged, "q8": q8, "ragged_long": ragged_long,
-                   "sweep": sweep}
+                   "group": group, "sweep": sweep}
 
     def launch_counts():
         return {k: m.launches for k, m in kernel_mods.items()}
@@ -366,7 +490,7 @@ def main():
     counts = launch_counts()
     first_seconds = time.perf_counter() - t0
     if (counts["ragged"] < 1 or counts["q8"] < 1 or counts["sweep"] != 0
-            or counts["ragged_long"] != 0):
+            or counts["ragged_long"] != 0 or counts["group"] != 0):
         fail(f"main path launches: {counts}")
     for key in ("scores", "query_ends", "target_ends"):
         arr = res_e[key]
@@ -433,7 +557,7 @@ def main():
         counts = launch_counts()
         first_seconds = time.perf_counter() - t0
         if (counts["ragged"] < 1 or counts["q8"] < 1 or counts["sweep"] != 0
-                or counts["ragged_long"] != 0):
+                or counts["ragged_long"] != 0 or counts["group"] != 0):
             fail(f"main path launches: {counts}")
         for key in ("scores", "query_ends", "target_ends"):
             arr = res_e[key]
@@ -456,9 +580,9 @@ def main():
 
         # --- 5b. the long-query path at full size -----------------------------
         want_launches = {35000: {"ragged": 0, "q8": 0, "ragged_long": 18,
-                                 "sweep": 0},
+                                 "group": 0, "sweep": 0},
                          5000: {"ragged": 1, "q8": 0, "ragged_long": 0,
-                                "sweep": 0}}
+                                "group": 0, "sweep": 0}}
         for mod in kernel_mods.values():
             mod.launches = 0
         t0 = time.perf_counter()
@@ -538,6 +662,157 @@ def main():
           "oracle_pairs": len(long_jobs), "oracle_equal": True,
           "oracle_wait_seconds": oracle_wait,
           "best_35000_sw": int(long_arrays[35000][0].max())})
+
+    # --- 5c. the sharded path at full size ----------------------------------
+    import tempfile
+
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = tmp_dir.name
+
+    def start_ranks(backend, world):
+        """``world`` processes of this script, one rank each."""
+        init = os.path.join(tmp, f"{backend}{world}.init")
+        outs = [os.path.join(tmp, f"{backend}{world}_{r}.npz")
+                for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             "--world", str(world), "--backend", backend, "--init", init,
+             "--out", outs[r]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        return backend, procs, outs
+
+    def finish_ranks(started, timeout=300):
+        """Wait for the ranks, hold each one's result against the single
+        process's, and describe each rank."""
+        backend, procs, outs = started
+        deadline = time.monotonic() + timeout
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = []
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                fail(f"{backend} rank {r} exited {p.returncode}:\n"
+                     f"{logs[r][-3000:]}")
+            z = np.load(out)
+            for key in ("scores", "query_ends", "target_ends"):
+                if not np.array_equal(z[key], res_e[key]):
+                    fail(f"{backend} rank {r}: {key} differ from align_arrays")
+            if 2 * int(z["local_bytes"]) > int(z["total_bytes"]):
+                fail(f"{backend} rank {r} packed more than its shards")
+            ranks.append({
+                "rank": r, "device": str(z["device"]),
+                "local_shards": z["local_shards"].tolist(),
+                "local_payload_bytes": int(z["local_bytes"]),
+                "all_payload_bytes": int(z["total_bytes"]),
+                "call_seconds": float(z["seconds"]),
+                "setup_seconds": float(z["setup_seconds"])})
+        return ranks
+
+    gloo_ranks = start_ranks("gloo", 2)  # runs beside the phases below
+    mesh4 = device_mesh(4)
+    gq = enc_q[0]
+    with db.lock.read:
+        gpack = packing.pack_database_slice(db, 0, n_t)
+    t0 = time.perf_counter()
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    sh_s = align_arrays_sharded(queries, db, mode="score", mesh=mesh4)
+    sh_e = align_arrays_sharded(queries, db, mode="end", mesh=mesh4)
+    # the grouped pack through K6 on the 4 shards, one 256-residue query
+    g_planes = np.zeros((3, n_t), np.int32)
+    for g in gpack.groups:
+        t_pad4, l_pad4 = sharded.pad_blocks(g.targets, g.lengths, 4)
+        planes = sharded.sharded_search_group(
+            mesh4, (group.make_profile_host(gq, S), len(gq)), t_pad4, l_pad4,
+            GO, GE, "sw", with_ends=True)
+        idx = g.indices.reshape(-1)
+        for k, plane in enumerate(planes):
+            g_planes[k, idx[idx >= 0]] = plane.reshape(-1)[: idx.size][
+                idx >= 0]
+    sharded_counts = launch_counts()
+    sharded_seconds = time.perf_counter() - t0
+    want_sharded = {"ragged": 2 * 4, "q8": 2 * 4, "ragged_long": 0,
+                    "group": 4 * len(gpack.groups), "sweep": 0}
+    if sharded_counts != want_sharded:
+        fail(f"sharded path launches: {sharded_counts}, want {want_sharded}")
+    if not np.array_equal(sh_s["scores"], res_s["scores"]) or any(
+            not np.array_equal(sh_e[k], res_e[k]) for k in res_e):
+        fail("align_arrays_sharded differs from align_arrays")
+    hits = al.align(queries[0], db, mode="end")
+    want_g = np.array([[r.score, r.query_end, r.target_end] for r in hits],
+                      np.int64).T
+    if not np.array_equal(g_planes, want_g):
+        bad = np.nonzero((g_planes != want_g).any(0))[0]
+        fail(f"K6 over the grouped pack differs from align on {bad.size} "
+             f"targets, e.g. {bad[:5].tolist()}")
+    top_k = 25
+    pad = (-n_t) % 4
+    sc = np.concatenate([g_planes[0], np.full(pad, -(2**31), np.int32)])
+    ix = np.concatenate([np.arange(n_t, dtype=np.int32),
+                         np.full(pad, -1, np.int32)])
+    tv, ti = sharded.top_k_merge(mesh4, sc, ix, top_k)
+    order = np.argsort(-sc.astype(np.int64), kind="stable")[:top_k]
+    if not (np.array_equal(tv, sc[order]) and np.array_equal(ti, ix[order])):
+        fail(f"top_k_merge: {tv.tolist()} {ti.tolist()}")
+    # K6 against its plain version at every launch the path made: each
+    # group's 4 shard runs, the same tensors sharded_search_group builds
+    gq_prof = group.make_profile_host(gq, S)
+    k6_path_args = []
+    for g in gpack.groups:
+        t_pad4, l_pad4 = sharded.pad_blocks(g.targets, g.lengths, 4)
+        per = t_pad4.shape[0] // 4
+        for s_, d in enumerate(mesh4.devices):
+            k6_path_args.append((
+                (torch.from_numpy(gq_prof).to(d), len(gq)),
+                torch.from_numpy(t_pad4[s_ * per:(s_ + 1) * per]).to(d),
+                torch.from_numpy(l_pad4[s_ * per:(s_ + 1) * per]).to(d),
+                GO, GE, "sw", True))
+    k6_path_errs, k6_path_plain_s = [], 0.0
+    for i, args in enumerate(k6_path_args):
+        _, err = compare("group", group.search_group,
+                         group.search_group_reference, args,
+                         f"K6 sharded path launch {i}")
+        k6_path_errs.append(err)
+        k6_path_plain_s += plain_seconds["group"]
+
+    # a one-rank nccl group, then the two gloo ranks (and two nccl ranks
+    # where there are two cards)
+    t1 = time.perf_counter()
+    initialize_distributed("nccl", f"file://{tmp}/nccl1.init", 1, 0)
+    try:
+        nccl1 = align_arrays_sharded(queries, db, mode="end",
+                                     mesh=device_mesh(2))
+    finally:
+        torch.distributed.destroy_process_group()
+    nccl1_seconds = time.perf_counter() - t1
+    if any(not np.array_equal(nccl1[k], res_e[k]) for k in res_e):
+        fail("the one-rank nccl group differs from align_arrays")
+    groups_run = {"nccl, 1 rank, 2 shards": {"seconds": nccl1_seconds},
+                  "gloo, 2 ranks on one card, 2 shards each":
+                      finish_ranks(gloo_ranks)}
+    if torch.cuda.device_count() >= 2:
+        groups_run["nccl, 2 ranks on 2 cards, 2 shards each"] = finish_ranks(
+            start_ranks("nccl", 2))
+    else:
+        groups_run["nccl, 2 ranks on 2 cards"] = "not run: one card"
+    tmp_dir.cleanup()
+    emit({"phase": "sharded_path", "mesh": [str(d) for d in mesh4.devices],
+          "launches": sharded_counts, "k6_groups": len(gpack.groups),
+          "seconds": sharded_seconds, "equal_to_align_arrays": True,
+          "k6_equal_to_align": True,
+          "k6_launches_equal_to_plain": len(k6_path_args),
+          "k6_launches_plain_seconds": k6_path_plain_s, "top_k": top_k,
+          "top_k_scores": tv.tolist(), "process_groups": groups_run,
+          **card})
 
     # --- 6. timings and kernels against plain versions at main shapes ----------
     enc = enc_q
@@ -652,6 +927,72 @@ def main():
           "mode": "sw score, one 2048-row segment", **results["ragged_long"],
           **card})
 
+    # K6 as the sharded path launches it: one query, 40 launches (each
+    # length bucket's 4 shard runs, end mode), held against the plain
+    # version above; then the whole database stacked as one group (every
+    # block at the longest t_pad: one launch over all 12,160 lanes) and
+    # one launch per group, unsharded
+    pq = group.make_profile(gq, S, dev)
+
+    def k6_path():
+        for args in k6_path_args:
+            group.search_group(*args)
+
+    path_ms = time_launches(k6_path, (), 3)
+    cells = len(gq) * residues
+    # residues read once (the kernel stops at each length), lengths,
+    # profile, three output planes
+    path_lanes = sum(a[2].numel() for a in k6_path_args)
+    path_bytes = (residues + 4 * path_lanes
+                  + len(k6_path_args) * pq[0].numel() * 4 + 3 * 4 * path_lanes)
+    path_bound = bound(cells, path_bytes)
+
+    t_big = max(g.t_pad for g in gpack.groups)
+    full_t = np.concatenate([
+        np.pad(g.targets, ((0, 0), (0, t_big - g.t_pad), (0, 0)))
+        for g in gpack.groups])
+    full_l = np.concatenate([g.lengths for g in gpack.groups])
+    base = (pq, torch.from_numpy(full_t).to(dev),
+            torch.from_numpy(full_l).to(dev), GO, GE, "sw")
+    errs = []
+    for ends in (True, False):
+        out, err = compare("group", group.search_group,
+                           group.search_group_reference, (*base, ends),
+                           f"K6 whole database ends={ends}")
+        errs.append(err)
+    ms = time_launches(group.search_group, (*base, False), 3)
+    gdev = [(torch.from_numpy(g.targets).to(dev),
+             torch.from_numpy(g.lengths).to(dev)) for g in gpack.groups]
+
+    def k6_groups():
+        for t_, l_ in gdev:
+            group.search_group(pq, t_, l_, GO, GE, "sw", False)
+
+    groups_ms = time_launches(k6_groups, (), 3)
+    n_bytes = (residues + full_l.nbytes + pq[0].numel() * 4
+               + 3 * 4 * full_l.size)
+    stacked_bound = bound(cells, n_bytes)
+    results["group"] = {
+        "ms": path_ms, "plain_ms": k6_path_plain_s * 1e3,
+        "max_abs_err": max(errs + k6_path_errs), "cells": cells,
+        "gcups": cells / (path_ms * 1e-3) / 1e9,
+        "int_ops": OPS_PER_CELL_SW_SCORE * cells, "bytes": path_bytes,
+        **path_bound,
+        "shape": f"one {len(gq)}-aa query, sw end mode, the sharded path's "
+                 f"{len(k6_path_args)} launches ({path_lanes} lanes); ms, "
+                 "plain_ms and bound_ms are per query over those launches",
+        "stacked_ms": ms, "stacked_plain_ms": plain_seconds["group"] * 1e3,
+        "stacked_bound_ms": stacked_bound["bound_ms"],
+        "stacked_gcups": cells / (ms * 1e-3) / 1e9,
+        "stacked_lanes": int(full_l.size), "stacked_t_pad": t_big,
+        "per_group_ms": groups_ms, "per_group_launches": len(gdev),
+        "per_group_gcups": cells / (groups_ms * 1e-3) / 1e9,
+    }
+    emit({"phase": "kernel_timing", "kernel": "group",
+          "mode": "sw, 256 aa x the database: the sharded path's launches "
+                  "(end mode); stacked as one group and per group (score "
+                  "mode)", **results["group"], **card})
+
     def wall(fn, n, warm=True):
         if warm:
             fn()
@@ -675,9 +1016,25 @@ def main():
     def one():
         return al.align(queries[0], db, mode="score")
 
+    def batch_sharded():
+        return align_arrays_sharded(queries, db, mode="score", mesh=mesh4)
+
+    gdev4 = [tuple(torch.from_numpy(a).to(dev) for a in
+                   sharded.pad_blocks(g.targets, g.lengths, 4))
+             for g in gpack.groups]
+
+    def group_sharded():  # one query, K6 on the 4 shards, every group
+        for t_, l_ in gdev4:
+            sharded.sharded_search_group(mesh4, pq, t_, l_, GO, GE, "sw",
+                                         with_ends=True)
+
     batch_launches = counted(batch)
     single_launches = counted(one)
+    batch_sharded_launches = counted(batch_sharded)
+    group_sharded_launches = counted(group_sharded)
     batch_s = wall(batch, 3)
+    batch_sharded_s = wall(batch_sharded, 3)
+    group_sharded_s = wall(group_sharded, 3)
     single_s = wall(one, 5)
     cells_batch = sum(len(q) for q in enc) * residues
     # three calls of each long align: the end and score calls of phase 5b
@@ -688,6 +1045,13 @@ def main():
     emit({"phase": "end_to_end", "align_arrays_seconds": batch_s,
           "align_arrays_gcups": cells_batch / float(np.median(batch_s)) / 1e9,
           "align_arrays_launches": batch_launches,
+          "align_arrays_sharded_4_shards_seconds": batch_sharded_s,
+          "align_arrays_sharded_4_shards_gcups":
+              cells_batch / float(np.median(batch_sharded_s)) / 1e9,
+          "align_arrays_sharded_4_shards_launches": batch_sharded_launches,
+          "sharded_search_group_4_shards_ms":
+              [t * 1e3 for t in group_sharded_s],
+          "sharded_search_group_4_shards_launches": group_sharded_launches,
           "single_align_ms": [t * 1e3 for t in single_s],
           "single_align_launches": single_launches,
           **{f"align_{n}_{m}_seconds": t for (n, m), t in long_times.items()},
@@ -696,19 +1060,22 @@ def main():
              for n in long_q}, **card})
 
     # --- 7. the kernels line, the card line, the result line ----------------
-    # launches: the main path's run plus the long-query path's run
+    # launches: the runs of the main path, the long-query path and the
+    # sharded path, each counted from 0
     entries = [
-        ("q8", "q8", "pyopal_tpu_torch/csrc/q8.cu",
-         "pyopal_tpu/ops/pallas_q8.py:138", counts["q8"] + long_counts["q8"]),
-        ("ragged", "ragged", "pyopal_tpu_torch/csrc/ragged.cu",
-         "pyopal_tpu/ops/pallas_ragged.py:400",
-         counts["ragged"] + long_counts["ragged"]),
-        ("ragged_long", "ragged_long", "pyopal_tpu_torch/csrc/ragged_long.cu",
-         "pyopal_tpu/ops/pallas_ragged_long.py:49",
-         counts["ragged_long"] + long_counts["ragged_long"]),
+        ("q8", "pyopal_tpu_torch/csrc/q8.cu",
+         "pyopal_tpu/ops/pallas_q8.py:138"),
+        ("ragged", "pyopal_tpu_torch/csrc/ragged.cu",
+         "pyopal_tpu/ops/pallas_ragged.py:400"),
+        ("ragged_long", "pyopal_tpu_torch/csrc/ragged_long.cu",
+         "pyopal_tpu/ops/pallas_ragged_long.py:49"),
+        ("group", "pyopal_tpu_torch/csrc/group.cu",
+         "pyopal_tpu/ops/pallas_kernel.py:119"),
     ]
     kernels = []
-    for name, key, source, replaces, launches in entries:
+    for name, source, replaces in entries:
+        key = name
+        launches = sum(c[name] for c in (counts, long_counts, sharded_counts))
         r = results[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -717,6 +1084,8 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "checked_against_plain": True,
+            **{k: v for k, v in r.items()
+               if k == "shape" or k.startswith("stacked_")},
         })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
@@ -728,4 +1097,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[1:]) if len(sys.argv) > 1 else main())

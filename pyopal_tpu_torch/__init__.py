@@ -8,12 +8,15 @@ Needleman-Wunsch global (``nw``) and two semi-global variants (``hw``,
 with the same public names, except the FASTA/database I/O of
 ``pyopal_tpu/io.py``, which is not ported yet.
 
-The searches run on an NVIDIA GPU through three hand-written CUDA
-kernels (``csrc/ragged.cu``, ``csrc/q8.cu`` and, for queries beyond
-4096 residues that a single launch cannot take, the segmented
+The searches run on an NVIDIA GPU through hand-written CUDA kernels
+(``csrc/ragged.cu``, ``csrc/q8.cu`` and, for queries beyond 4096
+residues that a single launch cannot take, the segmented
 ``csrc/ragged_long.cu``), built with ``nvcc`` at first use.
 ``device="cpu"`` runs the same dispatch with the kernels' plain PyTorch
-versions instead.  The package imports PyTorch and numpy only.
+versions instead.  `pyopal_tpu_torch.parallel` shards one search over
+several cards, one card, or the ranks of a `torch.distributed` group
+(with the grouped kernel ``csrc/group.cu`` for its group search).  The
+package imports PyTorch and numpy only.
 
 Example:
     >>> import pyopal_tpu_torch

@@ -1,5 +1,5 @@
-// Affine-gap DP of one (query, target) pair, shared by the three kernels
-// (ragged.cu, q8.cu, ragged_long.cu).
+// Affine-gap DP of one (query, target) pair, shared by the four kernels
+// (ragged.cu, q8.cu, ragged_long.cu, group.cu).
 //
 // One thread owns one pair and walks the DP matrix column by column
 // (target positions, outer loop) and row by row inside a column (query
@@ -24,8 +24,9 @@
 // on.  hw/ov read the last query row after each column; ov reads the
 // last target column with the same strictly-greater rule and loses ties
 // to the last row; nw reads the terminal cell.  Each thread stops at its
-// own target and query length, so pad symbols and pad profile rows are
-// never read.
+// own target length, so pad symbols are never read, and K1-K3 stop at the
+// query's length; the grouped kernel (group.cu) also walks the profile's
+// pad rows past the query, as its TPU kernel does (PAD_ROWS).
 //
 // All arithmetic is int32; NEG = -2^30 stays clear of wraparound because
 // every recurrence takes a max with a finite term before subtracting a
@@ -66,7 +67,10 @@ __device__ __forceinline__ Track track_start(int Q, int go, int ge) {
 // SEG: hb_in/fb_in hold H and F of row row0 - 1 at every column (read when
 //   row0 > 0), hb_out/fb_out receive those of the walk's last row; all
 //   four are laid out like tgt.  Without SEG they are not touched.
-template <int ALG, bool ENDS, bool SEG>
+// PAD_ROWS: the walk's rows go past the query's Q rows (profile rows that
+//   score PAD_SCORE); they count for sw's best cell and ov's last column,
+//   while hw, ov and nw read the last row at row Q - 1.
+template <int ALG, bool ENDS, bool SEG, bool PAD_ROWS = false>
 __device__ __forceinline__ void dp_walk(
     const int* __restrict__ prof, int prof_stride, int row0, int rows, int Q,
     const uint8_t* __restrict__ tgt, int tgt_stride, int len,
@@ -102,6 +106,7 @@ __device__ __forceinline__ void dp_walk(
       f = fb_in[jt];
       hleft = hup;
     }
+    int hq = 0;  // H at the query's last row (PAD_ROWS)
     for (int i = 0; i < rows; ++i) {
       const int2 he = scr[i * scr_stride];
       const int e = max(he.x - go, he.y - ge);
@@ -127,31 +132,41 @@ __device__ __forceinline__ void dp_walk(
         t.cap = h;
         t.ci = row0 + i;
       }
+      if (PAD_ROWS && i == Q - 1) hq = h;
     }
     if (SEG) {  // hup and f are now H and F of the walk's last row
       hb_out[jt] = hup;
       fb_out[jt] = f;
     }
-    if (has_last) {  // hup is H at the query's last row
-      if ((ALG == HW || ALG == OV) && hup > t.best) {
-        t.best = hup;
+    if (!PAD_ROWS) hq = hup;  // the walk's last row is the query's
+    if (has_last) {
+      if ((ALG == HW || ALG == OV) && hq > t.best) {
+        t.best = hq;
         t.bj = j;
       }
-      if (ALG == NW && last_col) t.cap = hup;
+      if (ALG == NW && last_col) t.cap = hq;
     }
   }
 }
 
 // Writes (score, query end, target end) of a pair from its trackers.
-template <int ALG, bool ENDS>
+// Without ENDS no position was tracked.  K1 and K2 then write -1 in both
+// end planes, as their TPU kernels do; with SCORE_PLANES (K3, K6) the
+// planes hold what those kernels' finalize writes from untracked (-1)
+// positions: nw Q - 1 and len - 1, hw Q - 1 and -1, ov Q - 1 and -1 or,
+// when the last column wins, -1 and len - 1, sw -1 and -1.
+template <int ALG, bool ENDS, bool SCORE_PLANES = false>
 __device__ __forceinline__ void dp_finish(const Track& t, int Q, int len,
                                           int* out_score, int* out_qe,
                                           int* out_te) {
+  const int bi = ENDS ? t.bi : -1;
+  const int bj = ENDS ? t.bj : -1;
+  const int ci = ENDS ? t.ci : -1;
   int score, qe, te;
   if (ALG == SW) {
     score = t.best;
-    qe = t.bi;
-    te = t.bj;
+    qe = bi;
+    te = bj;
   } else if (ALG == NW) {
     score = t.cap;
     qe = Q - 1;
@@ -159,16 +174,17 @@ __device__ __forceinline__ void dp_finish(const Track& t, int Q, int len,
   } else if (ALG == HW) {
     score = t.best;
     qe = Q - 1;
-    te = t.bj;
+    te = bj;
   } else {  // OV: ties go to the last-row end
     const bool use_col = t.cap > t.best;
     score = use_col ? t.cap : t.best;
-    qe = use_col ? t.ci : Q - 1;
-    te = use_col ? len - 1 : t.bj;
+    qe = use_col ? ci : Q - 1;
+    te = use_col ? len - 1 : bj;
   }
+  constexpr bool kPlanes = ENDS || SCORE_PLANES;
   *out_score = score;
-  *out_qe = ENDS ? qe : -1;
-  *out_te = ENDS ? te : -1;
+  *out_qe = kPlanes ? qe : -1;
+  *out_te = kPlanes ? te : -1;
 }
 
 // Scores one whole pair (every query row in one walk).

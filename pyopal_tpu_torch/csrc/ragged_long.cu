@@ -75,7 +75,7 @@ __global__ void __launch_bounds__(128) seg_kernel(
   trk_out[2 * n_lanes + n] = t.bi;
   trk_out[3 * n_lanes + n] = t.bj;
   trk_out[4 * n_lanes + n] = t.ci;
-  dp_finish<ALG, ENDS>(t, Q, len, scores + n, qends + n, tends + n);
+  dp_finish<ALG, ENDS, true>(t, Q, len, scores + n, qends + n, tends + n);
 }
 
 }  // namespace pyopal

@@ -6,8 +6,10 @@
 - `q8`     — kernel K2 (``csrc/q8.cu``) and its plain version.
 - `ragged_long` — kernel K3 (``csrc/ragged_long.cu``), the segmented
   search of one long query, and its plain version.
+- `group`  — kernel K6 (``csrc/group.cu``), one query over a stacked
+  group of the grouped layout, and its plain version.
 - `engine` — routing, launches and result assembly.
 
-`packing` builds the flat layout the kernels read; `_cuda` builds and
+`packing` builds the flat and grouped layouts the kernels read; `_cuda` builds and
 binds the kernels.
 """

@@ -51,6 +51,7 @@ KERNELS = {
     "ragged": ("pyopal_ragged_launch", [_P] * 9 + [_I] * 10 + [_P]),
     "q8": ("pyopal_q8_launch", [_P] * 9 + [_I] * 10 + [_P]),
     "ragged_long": ("pyopal_ragged_long_launch", [_P] * 14 + [_I] * 11 + [_P]),
+    "group": ("pyopal_group_launch", [_P] * 7 + [_I] * 11 + [_P]),
 }
 
 _LOCK = threading.Lock()

@@ -1,20 +1,28 @@
-"""Flat packed database layout shared by the port's kernels.
+"""Packed database layouts read by the port's kernels.
 
-Port of ``pyopal_tpu/ops/packing.py`` (the flat half: `flat_layout`,
-`fill_flat_payload`, `pack_sequences_flat`, `pack_database_slice_flat`),
-numpy only.  Targets are sorted by length and cut into blocks of
-``lanes`` targets (one target per lane); every block is padded to a
-multiple of ``chunk`` columns with pad symbol 31, and the blocks
-concatenate into one ``(total_rows, lanes)`` uint8 array.  Per-step maps
-(``block_of_step`` / ``chunk_of_step`` / ``last_of_step``) and the
-inverse permutation ``inv_pos`` are identical to the reference's, so
-both packages' kernels read the same arrays and results compare target
-by target.
+Port of ``pyopal_tpu/ops/packing.py``, numpy only, in two halves:
+
+- the flat layout (`flat_layout`, `fill_flat_payload`,
+  `pack_sequences_flat`, `pack_database_slice_flat`) of K1-K3: targets
+  are sorted by length and cut into blocks of ``lanes`` targets (one
+  target per lane); every block is padded to a multiple of ``chunk``
+  columns with pad symbol 31, and the blocks concatenate into one
+  ``(total_rows, lanes)`` uint8 array.  Per-step maps (``block_of_step``
+  / ``chunk_of_step`` / ``last_of_step``) and the inverse permutation
+  ``inv_pos`` are identical to the reference's;
+- the grouped layout (`pack_sequences`, `pack_database_slice`) of K6:
+  the same length-sorted blocks, each padded to a quantized length
+  (`_quantize_length`) with pad symbol 0, and blocks of one padded
+  length stacked into one `PackedGroup`.
+
+Both are byte-equal to the reference's, so both packages' kernels read
+the same arrays and results compare target by target.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Dict, List
 
 import threading
 
@@ -22,6 +30,99 @@ import numpy as np
 
 #: Number of database sequences per block (one per lane).
 LANES = 128
+
+#: Column padding quantum of the grouped layout.
+COL_QUANTUM = 16
+
+
+def _quantize_length(n: int) -> int:
+    """Round ``n`` up to a grouped block's padded length.
+
+    Multiples of 32 up to 256, then multiples of 256 (the reference
+    kernel's column chunk): padding waste stays near 12% for long
+    targets while the set of padded lengths stays small.
+    """
+    n = max(n, COL_QUANTUM)
+    if n <= 256:
+        return -(-n // 32) * 32
+    return -(-n // 256) * 256
+
+
+@dataclass
+class PackedGroup:
+    """All blocks sharing one padded target length.
+
+    Attributes:
+        targets: ``(n_blocks, t_pad, LANES)`` uint8 encoded symbols
+            (padding symbol is 0, masked out by per-lane lengths).
+        lengths: ``(n_blocks, LANES)`` int32 true target lengths
+            (0 for padding lanes).
+        indices: ``(n_blocks, LANES)`` int32 global target indices
+            (-1 for padding lanes).
+    """
+
+    t_pad: int
+    targets: np.ndarray
+    lengths: np.ndarray
+    indices: np.ndarray
+
+
+@dataclass
+class PackedDatabase:
+    """A database slice packed into padded blocks."""
+
+    n_targets: int
+    groups: List[PackedGroup] = field(default_factory=list)
+
+    @property
+    def total_cells_padded(self) -> int:
+        return sum(int(g.targets.size) for g in self.groups)
+
+    @property
+    def total_cells(self) -> int:
+        return int(sum(int(g.lengths.sum()) for g in self.groups))
+
+
+def pack_sequences(sequences, lanes: int = LANES) -> PackedDatabase:
+    """Pack encoded sequences (list of uint8 arrays) into grouped blocks.
+
+    Targets are sorted by length, grouped into blocks of ``lanes``, each
+    block padded to the quantized maximum length of its members, and
+    blocks of identical padded length are stacked.
+    """
+    n = len(sequences)
+    packed = PackedDatabase(n_targets=n)
+    if n == 0:
+        return packed
+
+    order = sorted(range(n), key=lambda i: len(sequences[i]))
+    by_tpad: Dict[int, list] = {}
+
+    for start in range(0, n, lanes):
+        chunk = order[start : start + lanes]
+        max_len = max(len(sequences[i]) for i in chunk)
+        t_pad = _quantize_length(max_len)
+        tgt = np.zeros((t_pad, lanes), dtype=np.uint8)
+        lens = np.zeros(lanes, dtype=np.int32)
+        idx = np.full(lanes, -1, dtype=np.int32)
+        for lane, i in enumerate(chunk):
+            seq = sequences[i]
+            tgt[: seq.shape[0], lane] = seq
+            lens[lane] = seq.shape[0]
+            idx[lane] = i
+        by_tpad.setdefault(t_pad, []).append((tgt, lens, idx))
+
+    for t_pad in sorted(by_tpad):
+        blocks = by_tpad[t_pad]
+        packed.groups.append(
+            PackedGroup(
+                t_pad=t_pad,
+                targets=np.stack([b[0] for b in blocks]),
+                lengths=np.stack([b[1] for b in blocks]),
+                indices=np.stack([b[2] for b in blocks]),
+            )
+        )
+    return packed
 
 @dataclass
 class FlatPacked:
@@ -219,5 +320,20 @@ def pack_database_slice_flat(
             return hit
     seqs = [database.get_encoded(i) for i in range(start, end)]
     packed = pack_sequences_flat(seqs, lanes=lanes)
+    _cache_put(cache, key, packed)
+    return packed
+
+
+def pack_database_slice(database, start: int, end: int) -> PackedDatabase:
+    """Grouped pack of ``database[start:end]`` (caller holds the read
+    lock), memoized like `pack_database_slice_flat`."""
+    cache = getattr(database, "_pack_cache", None)
+    key = (database.get_version(), start, end)
+    if cache is not None:
+        hit = cache.get(key)
+        if hit is not None:
+            return hit
+    seqs = [database.get_encoded(i) for i in range(start, end)]
+    packed = pack_sequences(seqs)
     _cache_put(cache, key, packed)
     return packed

@@ -33,7 +33,10 @@ As in `pyopal_tpu_torch.ops.ragged`:
 
 Outputs follow the reference: ``(n_blocks, lanes)`` int32 scores, query
 ends and target ends for sw/nw/hw/ov, with the sweep order's tie rule
-kept across segments; in score-only mode both end planes are -1.
+kept across segments.  In score-only mode no position is tracked, and the
+end planes hold what the reference's finalize writes then: nw ``Q - 1``
+and ``len - 1``, hw ``Q - 1`` and -1, ov ``Q - 1`` and -1 or, where the
+last column wins, -1 and ``len - 1``, sw -1 and -1.
 """
 
 from __future__ import annotations
@@ -301,21 +304,24 @@ def segment_reference(
             ci[k:] = torch.where(upd, coli, ci[k:])
 
     qlast = torch.full_like(best, Q - 1)
+    # score mode tracks no position (the kernel's trackers still carry
+    # hw/ov's columns to the next segment, unread)
+    ei, ej, eci = (
+        (bi, bj, ci) if with_ends else (torch.full_like(best, -1),) * 3
+    )
     if algorithm == "sw":
-        out = (best, bi, bj)
+        out = (best, ei, ej)
     elif algorithm == "nw":
         out = (cap, qlast, lens - 1)
     elif algorithm == "hw":
-        out = (best, qlast, bj)
+        out = (best, qlast, ej)
     else:  # ov: ties go to the last-row end
         use_col = cap > best
         out = (
             torch.maximum(best, cap),
-            torch.where(use_col, ci, qlast),
-            torch.where(use_col, lens - 1, bj),
+            torch.where(use_col, eci, qlast),
+            torch.where(use_col, lens - 1, ej),
         )
-    if not with_ends:
-        out = (out[0], torch.full_like(best, -1), torch.full_like(best, -1))
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(N, device=dev)
     scores, qe, te = (x[inv].reshape(n_blocks, lanes) for x in out)

@@ -1,0 +1,259 @@
+"""User-facing sharded database search.
+
+Port of ``pyopal_tpu/parallel/api.py``.  The reference's user-visible
+parallelism knob is ``align(threads=N)``: a thread pool over database
+chunks.  Here the axis is a mesh of database shards over cards, or over
+the ranks of a `torch.distributed` group, with the same contract:
+sharding never changes scores, and results come back keyed by global
+target index:
+
+>>> import pyopal_tpu_torch as pt
+>>> from pyopal_tpu_torch.parallel import align_arrays_sharded, device_mesh
+>>> db = pt.Database(["AACCGCTG", "ATGCGCT", "TTATTACG"])
+>>> mesh = device_mesh(2, device="cpu")
+>>> out = align_arrays_sharded(["ACCTG"], db, gap_open=2, mesh=mesh)
+>>> out["scores"][0].tolist()
+[41, 31, 23]
+
+`align_arrays_sharded` is the mesh analog of
+`pyopal_tpu_torch.Aligner.align_arrays`: the encoded database is dealt
+over the shards (greedy-LPT balanced blocks), query profiles are copied
+to every shard's device, each query-tier cohort runs the flat kernels
+once on every shard, and the per-shard outputs are all-gathered and
+reassembled into global target order.
+
+The port has one route.  On a CPU mesh the same dispatch runs the
+kernels' plain versions, as the port's engine does; the reference's
+second route for meshes off the TPU (``_xla_mesh_scores``, l.86), which
+exists because interpreted Pallas is slow there, is not ported.  Full
+mode and `align_top_k_sharded` need the traceback (``ops/traceback.py``,
+not ported yet) and raise `NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..aligner import _FULL_MODE_MESSAGE, Aligner, _clamp_slice
+from ..ops import engine, packing, q8, ragged
+from . import sharded_flat as sfm
+from .mesh import device_mesh
+
+__all__ = ["align_arrays_sharded", "align_top_k_sharded"]
+
+UINT32_MAX = 0xFFFFFFFF
+
+
+def _pack_sharded_cached(database, n_shards, lanes, local_shards, start,
+                         end):
+    """`pack_flat_sharded` memoized on the database mutation version (the
+    contract of `packing.pack_database_slice_flat`), so repeat calls
+    skip repacking and re-uploading the database, and skip even
+    materializing the encoded sequences on a cache hit.
+
+    ``local_shards`` (from `sharded_flat.local_shards_of_mesh`) keeps
+    the packed payloads of a rank to its own shards."""
+    cache = getattr(database, "_pack_cache", None)
+    key = (
+        "sharded", n_shards, lanes, tuple(local_shards), start, end,
+        database.get_version(),
+    )
+    if cache is not None:
+        hit = cache.get(key)
+        if hit is not None:
+            return hit
+    seqs = [database.get_encoded(i) for i in range(start, end)]
+    packed = sfm.pack_flat_sharded(
+        seqs, n_shards, lanes=lanes, local_shards=local_shards
+    )
+    packing._cache_put(cache, key, packed)
+    return packed
+
+
+def align_arrays_sharded(
+    queries,
+    database,
+    *,
+    scoring_matrix=None,
+    gap_open: int = 3,
+    gap_extend: int = 1,
+    mode: str = "score",
+    algorithm: str = "sw",
+    start: int = 0,
+    end: int = UINT32_MAX,
+    mesh=None,
+):
+    """Columnar batch search sharded over a mesh of database shards.
+
+    Identical semantics to `pyopal_tpu_torch.Aligner.align_arrays` (same
+    scores and ends for every ``(query, target)`` pair, same empty-
+    alignment ``-1`` sentinels), with the database distributed over
+    ``mesh``.  Query-tier cohorts route exactly like the single-device
+    engine: full groups of 8 same-tier queries take K2, the rest K1,
+    each launched once per shard.  Calls outside the kernels' domain
+    (matrix entries beyond ±256, DP values past the reference's 2**24
+    window, negative gap parameters), empty queries, and queries beyond
+    4096 residues keep the same results through the single-device engine
+    on this rank's first shard device.  In a process group every rank
+    calls this with the same arguments and receives the whole result.
+
+    Arguments:
+        queries: iterable of query sequences (`str`, `bytes`, …).
+        database (`~pyopal_tpu_torch.BaseDatabase`): targets to score.
+        scoring_matrix: a `~pyopal_tpu_torch.ScoringMatrix`, a matrix
+            name, or `None` for BLOSUM50 (the `Aligner` defaults).
+        gap_open (`int`): gap opening penalty.
+        gap_extend (`int`): gap extension penalty.
+        mode (`str`): ``"score"`` or ``"end"``; ``"full"`` raises
+            `NotImplementedError`.
+        algorithm (`str`): ``"nw"``, ``"hw"``, ``"ov"`` or ``"sw"``.
+        start (`int`): Start offset in the database.
+        end (`int`): End offset in the database.
+        mesh (`~pyopal_tpu_torch.parallel.mesh.Mesh`): the shards
+            (`None`: ``device_mesh()``, every visible card; pass
+            ``device_mesh(n, device="cpu")`` to run on the CPU).
+
+    Returns:
+        `dict`: ``{"scores": (n_queries, n_targets) int32}`` plus, for
+        ``mode="end"``, ``"query_ends"`` and ``"target_ends"``.
+    """
+    # validation only: the searches run on the mesh's devices
+    aligner = Aligner(
+        scoring_matrix, gap_open=gap_open, gap_extend=gap_extend,
+        device="cpu",
+    )
+    if mode not in ("score", "end", "full"):
+        raise ValueError(f"invalid batch search mode: {mode!r}")
+    if mode == "full":
+        raise NotImplementedError(_FULL_MODE_MESSAGE)
+    if algorithm not in ("nw", "hw", "ov", "sw"):
+        raise ValueError(f"invalid algorithm: {algorithm!r}")
+    if database.alphabet != aligner.alphabet:
+        raise ValueError(
+            "database and score matrix have different alphabets"
+        )
+    if mesh is None:
+        mesh = device_mesh()
+    n_shards = mesh.n_shards
+    local_shards = sfm.local_shards_of_mesh(mesh)
+    home = mesh.devices[local_shards[0]]
+    matrix = aligner.scoring_matrix.int_data()
+    with_ends = mode != "score"
+
+    queries_enc = [
+        np.frombuffer(database.alphabet.encode(q), dtype=np.uint8)
+        for q in queries
+    ]
+    nq = len(queries_enc)
+
+    # the read lock is held for the whole search: the mutation-version
+    # cache key and every packed snapshot below are only coherent while
+    # writers are excluded
+    with database.lock.read:
+        start, end = _clamp_slice(database.get_size(), start, end)
+        n = max(end - start, 0)
+
+        if nq == 0 or n == 0:
+            out = {"scores": np.zeros((nq, n), dtype=np.int32)}
+            if with_ends:
+                out["query_ends"] = np.full((nq, n), -1, np.int32)
+                out["target_ends"] = np.full((nq, n), -1, np.int32)
+            return out
+
+        # the kernels' predicate, as in the single-device engine
+        use_mesh = (
+            np.abs(matrix).max(initial=0) <= 256
+            and matrix.shape[1] <= 31
+            and engine._fp32_exact_domain(
+                database, start, end, queries_enc, matrix, gap_open,
+                gap_extend,
+            )
+        )
+        mesh_ok = [use_mesh and ragged.supports(q.shape[0])
+                   for q in queries_enc]
+        mesh_idx = [i for i, ok in enumerate(mesh_ok) if ok]
+        fb_idx = [i for i, ok in enumerate(mesh_ok) if not ok]
+
+        scores = np.zeros((nq, n), dtype=np.int32)
+        q_ends = np.full((nq, n), -1, dtype=np.int32)
+        t_ends = np.full((nq, n), -1, dtype=np.int32)
+
+        mesh_queries = [queries_enc[i] for i in mesh_idx]
+
+        def _pack(lanes):
+            return _pack_sharded_cached(
+                database, n_shards, lanes, local_shards, start, end
+            )
+
+        def _store(qidx_rows, s, qe, te):
+            for row, qi in qidx_rows:
+                scores[qi] = s[row]
+                if with_ends:
+                    q_ends[qi] = qe[row]
+                    t_ends[qi] = te[row]
+
+        for _, lanes_q8, groups, v2_idx in engine.plan_tier_launches(
+            mesh_queries, safe_pad=True
+        ):
+            # the single-device engine's launch quanta and its memoized
+            # profile stacks
+            for k0 in range(0, len(groups), engine._Q8_LAUNCH_GROUPS):
+                gs = groups[k0 : k0 + engine._Q8_LAUNCH_GROUPS]
+                profs, qv, maxq = engine._profiles_q8(
+                    mesh_queries, matrix, gs, lanes_q8, home
+                )
+                s, qe, te = sfm.sharded_search_flat_q8(
+                    mesh, profs, qv, maxq, _pack(lanes_q8), gap_open,
+                    gap_extend, algorithm, with_ends=with_ends,
+                )
+                _store(
+                    [
+                        (g * q8.QB + qb, mesh_idx[qi])
+                        for g, idxs in enumerate(gs)
+                        for qb, qi in enumerate(idxs)
+                    ],
+                    s, qe, te,
+                )
+
+            if v2_idx:
+                cohort = [mesh_queries[i] for i in v2_idx]
+                profs, qlens = engine._profiles_for_cohort(
+                    cohort, matrix, home
+                )
+                s, qe, te = sfm.sharded_search_flat(
+                    mesh, profs, qlens, _pack(sfm.LANES), gap_open,
+                    gap_extend, algorithm, with_ends=with_ends,
+                )
+                _store(
+                    [(row, mesh_idx[qi]) for row, qi in enumerate(v2_idx)],
+                    s, qe, te,
+                )
+
+        if fb_idx:
+            s, qe, te = engine.search_scores_batch(
+                database, start, end, [queries_enc[i] for i in fb_idx],
+                matrix, gap_open, gap_extend, algorithm,
+                with_ends=with_ends, device=home,
+            )
+            _store(list(enumerate(fb_idx)), s, qe, te)
+
+    out = {"scores": scores}
+    if with_ends:
+        out["query_ends"] = q_ends
+        out["target_ends"] = t_ends
+    return out
+
+
+def align_top_k_sharded(queries, database, *, k: int = 100, **kwargs):
+    """Full alignments of each query's ``k`` best targets, mesh-wide;
+    not ported yet.
+
+    It needs the traceback of ``pyopal_tpu/ops/traceback.py`` and the
+    candidate pipeline that waits with it (ROADMAP.md, "Modules to
+    port").
+    """
+    raise NotImplementedError(
+        "align_top_k_sharded needs the traceback of "
+        "pyopal_tpu/ops/traceback.py, which is not ported yet "
+        "(ROADMAP.md, 'Modules to port')"
+    )

@@ -25,6 +25,7 @@ setup(
         "pyopal_tpu_torch",
         "pyopal_tpu_torch.models",
         "pyopal_tpu_torch.ops",
+        "pyopal_tpu_torch.parallel",
     ],
     package_data={"pyopal_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=[

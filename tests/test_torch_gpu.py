@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from pyopal_tpu_torch.matrices import ScoringMatrix
-from pyopal_tpu_torch.ops import packing, q8, ragged, ragged_long
+from pyopal_tpu_torch.ops import group, packing, q8, ragged, ragged_long
 
 pytestmark = pytest.mark.cuda
 
@@ -190,3 +190,64 @@ def test_ragged_kernel_fine_tier_matches_plain(dev, algo):
         *_flat(fp, dev), 3, 1, algo, True, fp.chunk,
     )
     _equal(ragged.search_flat(*args), ragged.search_flat_reference(*args))
+
+
+def _group_args(dev, seed, n_blocks=2):
+    """A K6 group: blocks of 128 lanes at t_pad 512 with the edge lengths
+    and zero-length lanes, and a 13-residue query (3 pad rows)."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, 301, (n_blocks, 128)).astype(np.int32)
+    lengths[0, :9] = [0, 1, 31, 32, 33, 255, 256, 257, 300]
+    lengths[-1, -3:] = 0
+    targets = rng.integers(0, 24, (n_blocks, 512, 128)).astype(np.uint8)
+    q = rng.integers(0, 24, 13).astype(np.uint8)
+    q[:10] = targets[0, 20:30, 7]
+    return (group.make_profile(q, S, dev), torch.from_numpy(targets).to(dev),
+            torch.from_numpy(lengths).to(dev))
+
+
+@pytest.mark.parametrize("with_ends", [False, True])
+@pytest.mark.parametrize("algo", ["nw", "hw", "ov", "sw"])
+def test_group_kernel_matches_plain(dev, algo, with_ends):
+    """K6 on every lane and plane, padding lanes included."""
+    prof, targets, lengths = _group_args(dev, 10)
+    args = (prof, targets, lengths, 3, 1, algo, with_ends)
+    before = group.launches
+    _equal(group.search_group(*args), group.search_group_reference(*args))
+    assert group.launches == before + 1
+
+
+def test_group_kernel_split_by_scratch_budget_matches_plain(dev, monkeypatch):
+    """A budget of 16 rows x 128 lanes makes one launch per block."""
+    prof, targets, lengths = _group_args(dev, 11, n_blocks=3)
+    monkeypatch.setattr(ragged, "SCRATCH_BYTES", 8 * 16 * 128)
+    args = (prof, targets.to(torch.int32), lengths, 1, 3, "sw", True)
+    before = group.launches
+    _equal(group.search_group(*args), group.search_group_reference(*args))
+    assert group.launches == before + 3
+
+
+def test_sharded_search_on_two_cuda_shards_matches_aligner(dev):
+    """`align_arrays_sharded` over 2 shards on the card (K2 and K1 once
+    per shard) against `Aligner.align_arrays` on the card."""
+    import pyopal_tpu_torch as pt
+    from pyopal_tpu_torch.parallel import align_arrays_sharded, device_mesh
+
+    rng = np.random.default_rng(12)
+    letters = "ARNDCQEGHILKMFPSTWYV"
+    seqs = ["".join(letters[c] for c in rng.integers(0, 20, n))
+            for n in rng.integers(0, 400, 700)]
+    queries = ["".join(letters[c] for c in rng.integers(0, 20, n))
+               for n in [50] * 9 + [0, 200]]
+    db = pt.Database(seqs)
+    mesh = device_mesh(2)
+    assert mesh.n_shards == 2 and mesh.platform == "cuda"
+    for mode in ("score", "end"):
+        before = (ragged.launches, q8.launches)
+        got = align_arrays_sharded(queries, db, mode=mode, mesh=mesh)
+        assert (ragged.launches, q8.launches) == (before[0] + 2 * 2,
+                                                  before[1] + 2)
+        want = pt.Aligner(device=dev).align_arrays(queries, db, mode=mode)
+        assert got.keys() == want.keys()
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
