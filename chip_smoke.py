@@ -9,9 +9,10 @@ Phases (the first failure ends the run with a nonzero exit code):
 
 1. the card: name and power limit from ``nvidia-smi``, torch and CUDA
    versions;
-2. the build: the four kernels (``pyopal_tpu_torch/csrc/ragged.cu``,
-   ``q8.cu``, ``ragged_long.cu``, ``group.cu``) compiled with ``nvcc``
-   for ``sm_90a``, in parallel;
+2. the build: the seven kernels (``pyopal_tpu_torch/csrc/ragged.cu``,
+   ``q8.cu``, ``ragged_long.cu``, ``ragged_v1.cu``, ``ragged_strip.cu``,
+   ``group.cu``, ``q8_narrow.cu``) compiled with ``nvcc`` for
+   ``sm_90a``, in parallel;
 3. each kernel against its plain PyTorch version on the card, every
    output plane in score and end modes: all four algorithms at several
    query tiers, with edge target lengths and a 2500-residue self-hit
@@ -21,7 +22,12 @@ Phases (the first failure ends the run with a nonzero exit code):
    on) at 32- and 64-row segments, and at 2048 rows for a 6,500-residue
    query against two 4,000-residue slices of itself; K6 (the grouped
    kernel) at queries of 13, 256 and 1,000 residues with gaps 3/1, 1/3
-   and 0/0 on every lane, padding lanes included;
+   and 0/0 on every lane, padding lanes included; K4 and K5 (no
+   ``safe_pad``) at every algorithm, both modes where the kernel has
+   them, gaps 3/1, 1/3 and 0/0, tiers 64 to 2048 (K4) and 1024 and 4096
+   (K5), and with a random 32 x 32 matrix over targets that hold symbol
+   31 as a real letter; K7 (the narrow pass) at gaps 3/1, 0/0 and
+   255/255, its scores also held against min(K2's, 255);
 4. the golden values through `pyopal_tpu_torch.Aligner` on ``cuda``;
 5. the main path at full size: a synthetic 12,071-sequence database
    (the generator of ``bench.py``, seed 12071) searched with 67
@@ -46,11 +52,26 @@ Phases (the first failure ends the run with a nonzero exit code):
    ``gloo`` group on the card (processes of this script, 2 shards each)
    and a one-rank ``nccl`` group, each equal to the single-process
    result (two ``nccl`` ranks where there are two cards);
+   then the path without ``safe_pad`` on the same database, each call
+   counted: ``sharded_search_flat`` at its defaults over the 4 shards
+   (K4 for 3 x 256 aa in both modes and 1 x 256 aa ``nw``, K5 for 1,000
+   and 3,000 aa; 4 launches a call), equal to the same call with
+   ``safe_pad=True`` (K1), with K4's score-mode end planes; the engine's
+   route for a 32-column matrix (BLOSUM50 inside -4): the 67 queries in
+   one K4 launch in each mode, equal to ``align_arrays``, a 1,000-aa
+   query in end mode (K4, equal to ``Aligner.align``), a 3,000-aa query
+   in score mode (K5, equal to K1) and end mode (K3, 2 launches, equal to
+   its plain version on a 1,000-target slice); K7 on the main path's 8
+   q8 groups, one query a 256-residue stretch of a target, its scores
+   min(K2's, 255) and its flagged lanes counted;
 6. timings with CUDA events after a warm-up, each kernel held against
    its plain version at the main path's shapes (K3: one 2048-row
    segment of the 35,000-residue query; K6: the sharded path's 40
-   launches for one query, and the whole database stacked as one group),
-   the bound of each kernel,
+   launches for one query, as the host feeds them and with all of them
+   queued before the first runs, and the whole database stacked as one
+   group; K4, K5 and K7 at phase 5d's shapes, also against their plain
+   versions on a 1,000-target slice), the bound of each kernel over the
+   cells its function needs (K5's walked pad rows reported apart),
    end-to-end throughput, long-query and sharded call times, and each
    kernel's launches in one ``align_arrays`` and one ``align`` call,
    counted;
@@ -180,6 +201,7 @@ def main():
         align_arrays_sharded, device_mesh, initialize_distributed,
     )
     from pyopal_tpu_torch.parallel import sharded
+    from pyopal_tpu_torch.parallel import sharded_flat as sfm
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -215,6 +237,24 @@ def main():
         return engine._flat_device(fp, dev)[:5]
 
     plain_seconds = {}  # the last plain run of each kernel
+
+    # each kernel's launch count, kept by its wrapper's module: a dict by
+    # kernel where a module launches several, else an int
+    def launch_counts():
+        return {**ragged.launches, **q8.launches,
+                "ragged_long": ragged_long.launches,
+                "group": group.launches, "sweep": sweep.launches}
+
+    def zero_counts():
+        for d in (ragged.launches, q8.launches):
+            d.update(dict.fromkeys(d, 0))
+        ragged_long.launches = group.launches = sweep.launches = 0
+
+    counters = list(launch_counts())
+
+    def only(**want):
+        """Launch counts with every kernel not named at 0."""
+        return {k: want.get(k, 0) for k in counters}
 
     def compare(name, kernel, plain, args, label):
         ko = kernel(*args)
@@ -277,25 +317,24 @@ def main():
         for algo in algos:
             for ends in (False, True):
                 args = (profs, qlens, *dev_flat(fp), GO, GE, algo, ends,
-                        fp.chunk)
+                        fp.chunk, True)
                 compare("ragged", ragged.search_flat,
                         ragged.search_flat_reference, args,
                         f"{label} {algo} ends={ends}")
                 n_checked += 1
         if label == "tier256":
             split_cases.append((
-                "ragged", ragged, ragged.search_flat,
-                ragged.search_flat_reference, args, profs.shape[1],
-                fp.lengths.size))
+                "ragged", ragged.search_flat, ragged.search_flat_reference,
+                args, 8 * profs.shape[1], fp.lengths.size))
     # the 2500-residue self-hit at the 4096 tier
     profs = torch.from_numpy(ragged.make_profiles_host([big], S)).to(dev)
-    qlens = torch.tensor([2500], dtype=torch.int32, device=dev)
+    qlens = torch.tensor([len(big)], dtype=torch.int32, device=dev)
     for algo in algos:
         for ends in (False, True):
             out, _ = compare(
                 "ragged", ragged.search_flat, ragged.search_flat_reference,
                 (profs, qlens, *dev_flat(fp_big), GO, GE, algo, ends,
-                 fp_big.chunk), f"tier4096 self-hit {algo} ends={ends}")
+                 fp_big.chunk, True), f"tier4096 self-hit {algo} ends={ends}")
             n_checked += 1
             if algo == "sw":
                 pos = int(fp_big.inv_pos[len(seqs)])
@@ -308,9 +347,13 @@ def main():
         ("tier256", 512, [256, 129, 200, 255, 140, 180, 222, 250]),
         ("tier512", 256, [512, 257, 300, 400, 511, 260, 333, 444]),
     ]
+    long_seq = next(t for t in seqs if len(t) >= 256)
+    k7_flagged = {}
     for label, lanes, qls in k2_cases:
         fp = packing.pack_sequences_flat(seqs, lanes=lanes)
         queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
+        if label == "tier256":  # a self-hit past K7's cap of 255
+            queries[0] = long_seq[:256].copy()
         groups = q8.plan_groups(qls)
         arrays = q8.make_profiles_q8_host(queries, S, groups, lanes=lanes)
         profs, qv, maxq = (torch.from_numpy(a).to(dev) for a in arrays)
@@ -318,24 +361,115 @@ def main():
             for ends in (False, True):
                 args = (profs, qv, maxq, *dev_flat(fp), GO, GE, algo, ends,
                         fp.chunk)
-                compare("q8", q8.search_flat_q8, q8.search_flat_q8_reference,
-                        args, f"{label} {algo} ends={ends}")
+                out, _ = compare(
+                    "q8", q8.search_flat_q8, q8.search_flat_q8_reference,
+                    args, f"{label} {algo} ends={ends}")
                 n_checked += 1
+        k2_args = args
+        # K7, the narrow pass: against its plain version, and its scores
+        # min(K2's, 255) on the same tensors
+        for gaps in ((3, 1), (0, 0), (255, 255)):
+            args = (profs, qv, maxq, *dev_flat(fp), *gaps, "sw", False,
+                    fp.chunk, True)
+            out, _ = compare("q8_narrow", q8.search_flat_q8,
+                             q8.search_flat_q8_reference, args,
+                             f"K7 {label} gaps={gaps}")
+            exact = q8.search_flat_q8(*args[:-1])[0]
+            if not torch.equal(out[0], exact.clamp(max=q8.NARROW_CAP)):
+                fail(f"K7 {label} gaps={gaps}: scores are not min(K2, 255)")
+            k7_flagged[f"{label} gaps={gaps}"] = int(
+                (out[0] == q8.NARROW_CAP).sum())
+            n_checked += 1
         if label == "tier64":  # two groups
             split_cases.append((
-                "q8", q8, q8.search_flat_q8, q8.search_flat_q8_reference,
-                args, profs.shape[1], fp.lengths.size))
+                "q8", q8.search_flat_q8, q8.search_flat_q8_reference,
+                k2_args, 8 * profs.shape[1], fp.lengths.size))
+            split_cases.append((
+                "q8_narrow", q8.search_flat_q8, q8.search_flat_q8_reference,
+                args, 4 * profs.shape[1], fp.lengths.size))
+    if k7_flagged["tier256 gaps=(3, 1)"] < 1:
+        fail(f"K7 flagged no lane: {k7_flagged}")
+
+    # K4 and K5 (no safe_pad): every algorithm, both modes where the
+    # kernel has them, gaps 3/1, 1/3 and 0/0, over the edge lengths; K4
+    # up to its 2048 tier, K5 at 1024 and at 4096 (the 2500-residue
+    # self-hit); a random 32 x 32 matrix over targets that hold symbol 31
+    # as a real letter
+    gap_sets = ((3, 1), (1, 3), (0, 0))
+    m32 = rng.integers(-6, 7, (32, 32))
+    m32 = ((m32 + m32.T) // 2).astype(np.int32)
+    seqs32 = [rng.integers(0, 32, int(n)).astype(np.uint8) for n in lens]
+    fp32 = packing.pack_sequences_flat(seqs32)
+    v1_cases = [  # (label, query lengths, targets, matrix, pack, modes, gaps)
+        ("K4 tier64", [64, 40, 9], seqs, S, fp128, (False, True), gap_sets),
+        ("K4 tier256", [256, 200, 129], seqs, S, fp128, (False, True),
+         gap_sets),
+        ("K4 tier2048", [2000], seqs, S, fp128, (False, True), ((3, 1),)),
+        ("K5 tier1024", [1000, 700], seqs, S, fp128, (False,), gap_sets),
+        ("K4 32x32 tier256", [256, 100], seqs32, m32, fp32, (False, True),
+         ((3, 1),)),
+        ("K5 32x32 tier512", [300], seqs32, m32, fp32, (False,), ((3, 1),)),
+    ]
+    v1_launches = {"ragged_v1": 0, "ragged_strip": 0}
+    for label, qls, tgts, mat, fp, modes, gaps_list in v1_cases:
+        alpha = mat.shape[1] if mat is m32 else 20
+        queries = [rng.integers(0, alpha, n).astype(np.uint8) for n in qls]
+        queries[0][3:33] = tgts[7][40:70]  # a high-scoring stretch
+        profs = torch.from_numpy(
+            ragged.make_profiles_host(queries, mat)).to(dev)
+        qlens = torch.tensor(qls, dtype=torch.int32, device=dev)
+        for algo in algos:
+            for ends in modes:
+                for gaps in gaps_list:
+                    name = ragged.flat_route(profs.shape[1], ends, False)
+                    before = launch_counts()[name]
+                    args = (profs, qlens, *dev_flat(fp), *gaps, algo, ends,
+                            fp.chunk, False)
+                    compare(name, ragged.search_flat,
+                            ragged.search_flat_reference, args,
+                            f"{label} {algo} ends={ends} gaps={gaps}")
+                    if launch_counts()[name] != before + 1:
+                        fail(f"{label}: {name} did not launch once")
+                    v1_launches[name] += 1
+                    n_checked += 1
+        if label == "K4 tier256":
+            split_cases.append((
+                "ragged_v1", ragged.search_flat,
+                ragged.search_flat_reference, args, 8 * profs.shape[1],
+                fp.lengths.size))
+        if label == "K5 tier1024":
+            rows = fp.flat_targets.shape[0]
+            split_cases.append((
+                "ragged_strip", ragged.search_flat,
+                ragged.search_flat_reference, args,
+                8 * (ragged.STRIP + -(-rows // fp.n_blocks)),
+                fp.lengths.size))
+    # K5 on the 2500-residue self-hit at the 4096 tier: K1's score
+    profs = torch.from_numpy(ragged.make_profiles_host([big], S)).to(dev)
+    qlens = torch.tensor([len(big)], dtype=torch.int32, device=dev)
+    for algo in ("sw", "ov"):
+        out, _ = compare(
+            "ragged_strip", ragged.search_flat, ragged.search_flat_reference,
+            (profs, qlens, *dev_flat(fp_big), GO, GE, algo, False,
+             fp_big.chunk, False), f"K5 tier4096 self-hit {algo}")
+        n_checked += 1
+        v1_launches["ragged_strip"] += 1
+        pos = int(fp_big.inv_pos[len(seqs)])
+        if algo == "sw" and int(out[0].reshape(-1)[pos]) != self_score:
+            fail(f"K5 2500-aa self-hit: {int(out[0].reshape(-1)[pos])}, "
+                 f"K1's {self_score}")
     # calls split into several launches by a small scratch budget: one
     # unit (query or group) and 128 lanes per launch, or one unit and
     # every lane per launch
     budget = ragged.SCRATCH_BYTES
     split_launches = {}
-    for name, mod, kfn, pfn, args, unit_rows, n_lanes in split_cases:
+    for name, kfn, pfn, args, lane_bytes, n_lanes in split_cases:
         for how, lanes_per_unit in (("lanes", 128), ("units", n_lanes)):
-            ragged.SCRATCH_BYTES = 8 * unit_rows * lanes_per_unit
-            before = mod.launches
+            ragged.SCRATCH_BYTES = lane_bytes * lanes_per_unit
+            before = launch_counts()[name]
             compare(name, kfn, pfn, args, f"split by {how}")
-            split_launches[f"{name} by {how}"] = mod.launches - before
+            split_launches[f"{name} by {how}"] = (
+                launch_counts()[name] - before)
             n_checked += 1
     # K3 with a budget of 64 rows x 128 lanes: one launch per 128 lanes
     # in each of three 64-row segments
@@ -361,7 +495,8 @@ def main():
                 compare("ragged", ragged.search_flat,
                         ragged.search_flat_reference,
                         (profs, qlens, *dev_flat(fp128), GO, GE, algo, ends,
-                         fp128.chunk), f"fine tier {tier} {algo} ends={ends}")
+                         fp128.chunk, True),
+                        f"fine tier {tier} {algo} ends={ends}")
                 n_checked += 1
 
     # K3 segment by segment: 3 segments of 32 rows and 2 of 64, each
@@ -445,6 +580,7 @@ def main():
     k6_launches = group.launches - k6_launches
     emit({"phase": "kernels_vs_plain", "cases": n_checked, "equal": True,
           "self_hit_score": self_score, "split_launches": split_launches,
+          "k4_k5_cases": v1_launches, "k7_flagged_lanes": k7_flagged,
           "k3_segment_launches": k3_launches,
           "k3_self_hits_score_qend_tend": long_hits,
           "k6_launches": k6_launches,
@@ -475,22 +611,14 @@ def main():
           "queries": len(queries), "query_length": 256,
           "seconds": time.perf_counter() - t0})
 
-    kernel_mods = {"ragged": ragged, "q8": q8, "ragged_long": ragged_long,
-                   "group": group, "sweep": sweep}
-
-    def launch_counts():
-        return {k: m.launches for k, m in kernel_mods.items()}
-
-    for mod in kernel_mods.values():
-        mod.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     res_s = al.align_arrays(queries, db, mode="score")
     res_e = al.align_arrays(queries, db, mode="end")
     single = al.align(queries[0], db, mode="score")
     counts = launch_counts()
     first_seconds = time.perf_counter() - t0
-    if (counts["ragged"] < 1 or counts["q8"] < 1 or counts["sweep"] != 0
-            or counts["ragged_long"] != 0 or counts["group"] != 0):
+    if counts != only(ragged=3, q8=2):  # per align_arrays K2 1, K1 1
         fail(f"main path launches: {counts}")
     for key in ("scores", "query_ends", "target_ends"):
         arr = res_e[key]
@@ -548,16 +676,14 @@ def main():
         long_oracle = pool.map(naive.score_end, *zip(*long_jobs), chunksize=1)
         main_oracle = pool.map(naive.score_end, *zip(*jobs), chunksize=8)
 
-        for mod in kernel_mods.values():
-            mod.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         res_s = al.align_arrays(queries, db, mode="score")
         res_e = al.align_arrays(queries, db, mode="end")
         single = al.align(queries[0], db, mode="score")
         counts = launch_counts()
         first_seconds = time.perf_counter() - t0
-        if (counts["ragged"] < 1 or counts["q8"] < 1 or counts["sweep"] != 0
-                or counts["ragged_long"] != 0 or counts["group"] != 0):
+        if counts != only(ragged=3, q8=2):  # 2 align_arrays, 1 align
             fail(f"main path launches: {counts}")
         for key in ("scores", "query_ends", "target_ends"):
             arr = res_e[key]
@@ -579,12 +705,8 @@ def main():
                      for a, b in ps]
 
         # --- 5b. the long-query path at full size -----------------------------
-        want_launches = {35000: {"ragged": 0, "q8": 0, "ragged_long": 18,
-                                 "group": 0, "sweep": 0},
-                         5000: {"ragged": 1, "q8": 0, "ragged_long": 0,
-                                "group": 0, "sweep": 0}}
-        for mod in kernel_mods.values():
-            mod.launches = 0
+        want_launches = {35000: only(ragged_long=18), 5000: only(ragged=1)}
+        zero_counts()
         t0 = time.perf_counter()
         long_res, long_times = {}, {}
         for n, q in long_q.items():
@@ -622,7 +744,7 @@ def main():
             [long_enc[5000]], S, q_pad=ragged.fine_qpad(5000))).to(dev)
         k1_plain = [x[0] for x in ragged.search_flat_reference(
             profs, torch.tensor([5000], dtype=torch.int32, device=dev),
-            *flat_s, GO, GE, "sw", True, fps.chunk)]
+            *flat_s, GO, GE, "sw", True, fps.chunk, True)]
         for n, planes in ((35000, k3_plain), (5000, k1_plain)):
             plain = torch.stack([x.reshape(-1) for x in planes])
             plain = plain.index_select(1, inv_s).cpu().numpy()
@@ -723,8 +845,7 @@ def main():
     with db.lock.read:
         gpack = packing.pack_database_slice(db, 0, n_t)
     t0 = time.perf_counter()
-    for mod in kernel_mods.values():
-        mod.launches = 0
+    zero_counts()
     sh_s = align_arrays_sharded(queries, db, mode="score", mesh=mesh4)
     sh_e = align_arrays_sharded(queries, db, mode="end", mesh=mesh4)
     # the grouped pack through K6 on the 4 shards, one 256-residue query
@@ -740,8 +861,7 @@ def main():
                 idx >= 0]
     sharded_counts = launch_counts()
     sharded_seconds = time.perf_counter() - t0
-    want_sharded = {"ragged": 2 * 4, "q8": 2 * 4, "ragged_long": 0,
-                    "group": 4 * len(gpack.groups), "sweep": 0}
+    want_sharded = only(ragged=2 * 4, q8=2 * 4, group=4 * len(gpack.groups))
     if sharded_counts != want_sharded:
         fail(f"sharded path launches: {sharded_counts}, want {want_sharded}")
     if not np.array_equal(sh_s["scores"], res_s["scores"]) or any(
@@ -814,6 +934,134 @@ def main():
           "top_k_scores": tv.tolist(), "process_groups": groups_run,
           **card})
 
+    # --- 5d. the path without safe_pad at full size ---------------------------
+    # `sharded_search_flat` at its defaults (K4 or K5 on each of 4 shards),
+    # the engine's route for a 32-column matrix (K4, K5, K3), and K7 on the
+    # main path's q8 groups; each call counted from 0
+    t0 = time.perf_counter()
+    new_counts, new_seconds = {}, {}
+
+    def counted_call(key, want, fn):
+        zero_counts()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        new_seconds[key] = time.perf_counter() - t1
+        new_counts[key] = launch_counts()
+        if new_counts[key] != want:
+            fail(f"{key} launches: {new_counts[key]}, want {want}")
+        return out
+
+    def same(a, b, what):
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            bad = np.nonzero(np.asarray(a) != np.asarray(b))
+            fail(f"{what}: {len(bad[0])} values differ")
+
+    xrng = np.random.default_rng(3000)
+    x_q = {n: "".join(letters[i] for i in xrng.integers(0, 20, n))
+           for n in (1000, 3000)}
+    x_enc = {n: np.frombuffer(db.alphabet.encode(q), np.uint8)
+             for n, q in x_q.items()}
+    sf4 = sfm.pack_flat_sharded([db.get_encoded(i) for i in range(n_t)], 4)
+
+    def sharded_flat(queries_enc, algo, ends, **kw):
+        return sfm.sharded_search_flat(
+            mesh4, ragged.make_profiles_host(queries_enc, S),
+            np.array([len(q) for q in queries_enc], np.int32), sf4, GO, GE,
+            algo, ends, **kw)
+
+    for ends in (True, False):
+        k4 = counted_call(f"sharded_search_flat 3 x 256 aa ends={ends}",
+                          only(ragged_v1=4),
+                          lambda: sharded_flat(enc_q[:3], "sw", ends))
+        k1 = sharded_flat(enc_q[:3], "sw", ends, safe_pad=True)
+        for k, (a, b) in enumerate(zip(k4, k1)):
+            if ends or k == 0:
+                same(a, b, f"sharded K4 ends={ends} plane {k} vs K1")
+            elif (a != -1).any():  # sw's score planes: -1 in K4 as in K1
+                fail("sharded K4 sw score planes are not -1")
+        same(k4[0], res_s["scores"][:3], "sharded K4 scores vs align_arrays")
+    k4 = counted_call("sharded_search_flat 1 x 256 aa nw score",
+                      only(ragged_v1=4),
+                      lambda: sharded_flat(enc_q[:1], "nw", False))
+    k1 = sharded_flat(enc_q[:1], "nw", False, safe_pad=True)
+    same(k4[0], k1[0], "sharded K4 nw scores vs K1")
+    same(k4[1], np.full((1, n_t), 255), "sharded K4 nw score-mode q_end")
+    same(k4[2], (lengths_all - 1)[None], "sharded K4 nw score-mode t_end")
+    k1_long = {}
+    for n in (1000, 3000):
+        k5 = counted_call(f"sharded_search_flat {n} aa score",
+                          only(ragged_strip=4),
+                          lambda: sharded_flat([x_enc[n]], "sw", False))
+        k1_long[n] = sharded_flat([x_enc[n]], "sw", False, safe_pad=True)
+        same(k5[0], k1_long[n][0], f"sharded K5 {n} aa scores vs K1")
+        if (k5[1] != -1).any() or (k5[2] != -1).any():
+            fail(f"sharded K5 {n} aa planes are not -1")
+
+    # BLOSUM50's 24 x 24 block inside a 32 x 32 matrix, -4 elsewhere: the
+    # database's codes are below 24, so the answers are BLOSUM50's
+    S32 = np.full((32, 32), -4, np.int32)
+    S32[: S.shape[0], : S.shape[1]] = S
+    with db.lock.read:
+        def route32(queries_enc, ends):
+            return engine.search_scores_batch(
+                db, 0, n_t, queries_enc, S32, GO, GE, "sw", ends, device=dev)
+
+        e32 = {ends: counted_call(
+            f"engine 32-column 67 x 256 aa ends={ends}", only(ragged_v1=1),
+            lambda: route32(enc_q, ends)) for ends in (False, True)}
+        e1000 = counted_call("engine 32-column 1000 aa end",
+                             only(ragged_v1=1),
+                             lambda: route32([x_enc[1000]], True))
+        s3000 = counted_call("engine 32-column 3000 aa score",
+                             only(ragged_strip=1),
+                             lambda: route32([x_enc[3000]], False))
+        e3000 = counted_call("engine 32-column 3000 aa end",
+                             only(ragged_long=2),
+                             lambda: route32([x_enc[3000]], True))
+    same(e32[False][0], res_s["scores"], "32-column score route vs main path")
+    for k, key in enumerate(("scores", "query_ends", "target_ends")):
+        same(e32[True][k], res_e[key], f"32-column end route {key}")
+    hits = al.align(x_q[1000], db, mode="end")
+    same(np.stack(e1000)[:, 0],
+         np.array([[r.score, r.query_end, r.target_end] for r in hits]).T,
+         "32-column 1000 aa end (K4) vs Aligner.align (K1)")
+    same(s3000[0], k1_long[3000][0], "32-column 3000 aa score (K5) vs K1")
+    same(e3000[0], s3000[0], "32-column 3000 aa end (K3) vs score (K5)")
+    k3_plain = ragged_long.search_flat_long_reference(
+        x_enc[3000], S32, *flat_s, GO, GE, "sw", True, fps.chunk)
+    k3_plain = torch.stack([x.reshape(-1) for x in k3_plain])
+    same(np.stack(e3000)[:, 0, lo:hi],
+         k3_plain.index_select(1, inv_s).cpu().numpy(),
+         "32-column 3000 aa end (K3) vs its plain version on the slice")
+
+    # K7 on the main path's 8 q8 groups, one query the first 256 residues
+    # of a database sequence, so that its lane reaches the cap
+    (_, lanes_q8, groups, _), = engine.plan_tier_launches(enc_q, True)
+    enc7 = list(enc_q)
+    enc7[groups[0][0]] = db.get_encoded(int(np.argmax(lengths_all >= 256)))[
+        :256].copy()
+    fpw = packing.pack_database_slice_flat(db, 0, n_t, lanes=lanes_q8)
+    k7_in = tuple(torch.from_numpy(a).to(dev) for a in q8.make_profiles_q8_host(
+        enc7, S, groups[:8], lanes=lanes_q8))
+    k7_args = (*k7_in, *dev_flat(fpw), GO, GE, "sw", False, fpw.chunk, True)
+    k7 = counted_call("K7 8 groups", only(q8_narrow=1),
+                      lambda: q8.search_flat_q8(*k7_args))
+    k2 = q8.search_flat_q8(*k7_args[:-1])
+    if not torch.equal(k7[0], k2[0].clamp(max=q8.NARROW_CAP)):
+        fail("K7 scores are not min(K2, 255) on the main path's groups")
+    if (k7[1] != -1).any() or (k7[2] != -1).any():
+        fail("K7 end planes are not -1")
+    k7_main_flagged = int((k7[0] == q8.NARROW_CAP).sum())
+    if k7_main_flagged < 1:
+        fail("K7 flagged no lane on the main path's groups")
+    x_counts = {k: sum(c[k] for c in new_counts.values()) for k in counters}
+    emit({"phase": "no_safe_pad_path", "launches": new_counts,
+          "seconds_per_call": new_seconds,
+          "k7_flagged_lanes": k7_main_flagged,
+          "k7_lanes": int(k7[0].numel()),
+          "equal": True, "seconds": time.perf_counter() - t0, **card})
+
     # --- 6. timings and kernels against plain versions at main shapes ----------
     enc = enc_q
     plan = engine.plan_tier_launches(enc, safe_pad=True)
@@ -870,6 +1118,8 @@ def main():
         errs = []
         for ends in (False,) if fine else (True, False):
             args = (*base, GO, GE, "sw", ends, fpk.chunk)
+            if key != "q8":
+                args += (True,)  # safe_pad: K1
             out, err = compare(key, kfn, pfn, args, f"main shape ends={ends}")
             errs.append(err)
         ms = time_launches(kfn, args, 2 if fine else 3, warm=not fine)
@@ -885,6 +1135,65 @@ def main():
             "bytes": in_bytes + out_bytes,
             **bound(cells, in_bytes + out_bytes),
         }
+        emit({"phase": "kernel_timing", "kernel": key, "mode": "sw score",
+              **results[key], **card})
+
+    # K4, K5 and K7 at the shapes of phase 5d's calls (K4: the engine's
+    # 67 x 256-aa cohort under the 32-column matrix; K5: the 3,000-residue
+    # query at the 4096 tier; K7: the 8 q8 groups): each against its plain
+    # version on the 1,000-target slice (K4 in both modes) and on the whole
+    # database in score mode (the plain time), then timed.  Cells (and the
+    # bound) count the query rows the function needs: K5 also walks the
+    # 1,096 pad rows of its 4096 tier, which score PAD_SCORE and cannot
+    # raise a score, so they are reported apart as walked cells.
+    fps512 = packing.pack_database_slice_flat(db, lo, hi, lanes=lanes_q8)
+    walked_rows = {"ragged_strip": 4096}
+    new_shapes = {  # name: (inputs, packs, query rows, modes on the slice)
+        "ragged_v1": (
+            (torch.from_numpy(ragged.make_profiles_host(enc, S32)).to(dev),
+             torch.tensor([len(q) for q in enc], dtype=torch.int32,
+                          device=dev)),
+            (fp, fps), 256 * len(enc), (True, False)),
+        "ragged_strip": (
+            (torch.from_numpy(ragged.make_profiles_host(
+                [x_enc[3000]], S32)).to(dev),
+             torch.tensor([3000], dtype=torch.int32, device=dev)),
+            (fp, fps), 3000, (False,)),
+        "q8_narrow": (
+            k7_in, (fpw, fps512),
+            sum(len(enc7[i]) for g in groups[:8] for i in g), (False,)),
+    }
+    for key, (base, (fpk, fps_k), query_rows, modes) in new_shapes.items():
+        extra = (True,) if key == "q8_narrow" else (False,)  # narrow, safe_pad
+        kfn, pfn = ((q8.search_flat_q8, q8.search_flat_q8_reference)
+                    if key == "q8_narrow" else
+                    (ragged.search_flat, ragged.search_flat_reference))
+        errs = []
+        for ends in modes:
+            _, err = compare(key, kfn, pfn, (
+                *base, *dev_flat(fps_k), GO, GE, "sw", ends, fps_k.chunk,
+                *extra), f"1,000-target slice ends={ends}")
+            errs.append(err)
+        args = (*base, *dev_flat(fpk), GO, GE, "sw", False, fpk.chunk, *extra)
+        out, err = compare(key, kfn, pfn, args, "main shape, score mode")
+        errs.append(err)
+        ms = time_launches(kfn, args, 3)
+        cells = query_rows * residues
+        out_bytes = 3 * 4 * out[0].numel()
+        in_bytes = (fpk.flat_targets.size + fpk.lengths.nbytes
+                    + sum(t.numel() * t.element_size() for t in base))
+        results[key] = {
+            "ms": ms, "plain_ms": plain_seconds[key] * 1e3,
+            "max_abs_err": max(errs), "cells": cells,
+            "gcups": cells / (ms * 1e-3) / 1e9,
+            "int_ops": OPS_PER_CELL_SW_SCORE * cells,
+            "bytes": in_bytes + out_bytes,
+            **bound(cells, in_bytes + out_bytes),
+        }
+        if key in walked_rows:
+            walked = walked_rows[key] * residues
+            results[key].update(walked_cells=walked,
+                                walked_gcups=walked / (ms * 1e-3) / 1e9)
         emit({"phase": "kernel_timing", "kernel": key, "mode": "sw score",
               **results[key], **card})
 
@@ -939,6 +1248,24 @@ def main():
             group.search_group(*args)
 
     path_ms = time_launches(k6_path, (), 3)
+    # the same launches with none of the host's time between them: a sleep
+    # kernel holds the stream while the host queues all of them, then the
+    # events time the card alone (valid while the queueing is the shorter)
+    hold_ms = 100.0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_ms * 1e-3 * max_sm_mhz * 1e6))
+    t1 = time.perf_counter()
+    start.record()
+    for _ in range(3):
+        k6_path()
+    stop.record()
+    queue_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.synchronize()
+    path_device_ms = start.elapsed_time(stop) / 3
+    if queue_ms >= hold_ms:
+        path_device_ms = None  # the host fell behind: not a device time
     cells = len(gq) * residues
     # residues read once (the kernel stops at each length), lengths,
     # profile, three output planes
@@ -981,6 +1308,7 @@ def main():
         "shape": f"one {len(gq)}-aa query, sw end mode, the sharded path's "
                  f"{len(k6_path_args)} launches ({path_lanes} lanes); ms, "
                  "plain_ms and bound_ms are per query over those launches",
+        "path_device_ms": path_device_ms, "path_queue_ms": queue_ms / 3,
         "stacked_ms": ms, "stacked_plain_ms": plain_seconds["group"] * 1e3,
         "stacked_bound_ms": stacked_bound["bound_ms"],
         "stacked_gcups": cells / (ms * 1e-3) / 1e9,
@@ -1005,8 +1333,7 @@ def main():
 
     def counted(fn):
         """Launches of each kernel during one call of ``fn``."""
-        for mod in kernel_mods.values():
-            mod.launches = 0
+        zero_counts()
         fn()
         return launch_counts()
 
@@ -1071,11 +1398,18 @@ def main():
          "pyopal_tpu/ops/pallas_ragged_long.py:49"),
         ("group", "pyopal_tpu_torch/csrc/group.cu",
          "pyopal_tpu/ops/pallas_kernel.py:119"),
+        ("ragged_v1", "pyopal_tpu_torch/csrc/ragged_v1.cu",
+         "pyopal_tpu/ops/pallas_ragged.py:169"),
+        ("ragged_strip", "pyopal_tpu_torch/csrc/ragged_strip.cu",
+         "pyopal_tpu/ops/pallas_ragged.py:732"),
+        ("q8_narrow", "pyopal_tpu_torch/csrc/q8_narrow.cu",
+         "pyopal_tpu/ops/pallas_q8.py:180"),
     ]
     kernels = []
     for name, source, replaces in entries:
         key = name
-        launches = sum(c[name] for c in (counts, long_counts, sharded_counts))
+        launches = sum(c[name] for c in (counts, long_counts, sharded_counts,
+                                         x_counts))
         r = results[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

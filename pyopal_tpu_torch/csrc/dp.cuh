@@ -1,5 +1,6 @@
-// Affine-gap DP of one (query, target) pair, shared by the four kernels
-// (ragged.cu, q8.cu, ragged_long.cu, group.cu).
+// Affine-gap DP of one (query, target) pair, shared by the int32 kernels
+// (ragged.cu, q8.cu, ragged_long.cu, group.cu, ragged_v1.cu,
+// ragged_strip.cu).
 //
 // One thread owns one pair and walks the DP matrix column by column
 // (target positions, outer loop) and row by row inside a column (query
@@ -10,10 +11,10 @@
 // lanes) load and store one contiguous 256-byte run per row.
 //
 // A walk may cover only a segment of the query's rows (the long-query
-// kernel, ragged_long.cu): the row above the segment then comes from the
-// previous segment's bottom row (H and F at every column), the segment
-// writes its own bottom row for the next one, and the trackers (Track)
-// carry over between launches.
+// kernel, ragged_long.cu, and the strips of ragged_strip.cu): the row
+// above the segment then comes from the previous segment's bottom row (H
+// and F at every column), the segment writes its own bottom row for the
+// next one, and the trackers (Track) carry over between segments.
 //
 // Tie-breaking falls out of the visiting order: trackers update only on
 // strictly greater values, so the first optimum in (column, row) order
@@ -25,8 +26,9 @@
 // last target column with the same strictly-greater rule and loses ties
 // to the last row; nw reads the terminal cell.  Each thread stops at its
 // own target length, so pad symbols are never read, and K1-K3 stop at the
-// query's length; the grouped kernel (group.cu) also walks the profile's
-// pad rows past the query, as its TPU kernel does (PAD_ROWS).
+// query's length; K4-K6 (ragged_v1.cu, ragged_strip.cu, group.cu) also
+// walk the profile's pad rows past the query, as their TPU kernels do
+// (PAD_ROWS).
 //
 // All arithmetic is int32; NEG = -2^30 stays clear of wraparound because
 // every recurrence takes a max with a finite term before subtracting a
@@ -66,21 +68,31 @@ __device__ __forceinline__ Track track_start(int Q, int go, int ge) {
 // scr: scratch row 0 of this (query, lane); row i at scr + i * scr_stride
 // SEG: hb_in/fb_in hold H and F of row row0 - 1 at every column (read when
 //   row0 > 0), hb_out/fb_out receive those of the walk's last row; all
-//   four are laid out like tgt.  Without SEG they are not touched.
+//   four are laid out like tgt.  Without SEG they are not touched.  They
+//   may be the same buffers (K5 updates its strip boundary in place):
+//   column j is read before it is written, and the four pointers are not
+//   __restrict__, so no load is moved past a store or served from the
+//   read-only cache.
 // PAD_ROWS: the walk's rows go past the query's Q rows (profile rows that
 //   score PAD_SCORE); they count for sw's best cell and ov's last column,
-//   while hw, ov and nw read the last row at row Q - 1.
+//   while hw, ov and nw read the last row at row Q - 1, in whichever
+//   segment holds it (with SEG, the segments of one walk cover Q_pad rows
+//   and only one of them holds row Q - 1).
 template <int ALG, bool ENDS, bool SEG, bool PAD_ROWS = false>
 __device__ __forceinline__ void dp_walk(
     const int* __restrict__ prof, int prof_stride, int row0, int rows, int Q,
     const uint8_t* __restrict__ tgt, int tgt_stride, int len,
     int2* __restrict__ scr, size_t scr_stride, int go, int ge,
-    const int* __restrict__ hb_in, const int* __restrict__ fb_in,
-    int* __restrict__ hb_out, int* __restrict__ fb_out, Track& t) {
+    const int* hb_in, const int* fb_in, int* hb_out, int* fb_out, Track& t) {
   constexpr bool kPenRow = ALG == NW;
   constexpr bool kPenCol = ALG == NW || ALG == HW;
   const bool top = !SEG || row0 == 0;  // the closed-form row 0 is above
-  const bool has_last = rows > 0 && (!SEG || row0 + rows == Q);
+  // the query's last row, counted from the walk's first row; only a
+  // segmented walk over pad rows (K5) may hold it in any of its segments
+  const int last = SEG ? Q - 1 - row0 : Q - 1;
+  const bool has_last = SEG && PAD_ROWS
+                            ? 0 <= last && last < rows
+                            : rows > 0 && (!SEG || row0 + rows == Q);
 
   // column 0 of the DP matrix: the first-column boundary, E = -inf
   for (int i = 0; i < rows; ++i) {
@@ -132,7 +144,7 @@ __device__ __forceinline__ void dp_walk(
         t.cap = h;
         t.ci = row0 + i;
       }
-      if (PAD_ROWS && i == Q - 1) hq = h;
+      if (PAD_ROWS && i == last) hq = h;
     }
     if (SEG) {  // hup and f are now H and F of the walk's last row
       hb_out[jt] = hup;
@@ -150,8 +162,8 @@ __device__ __forceinline__ void dp_walk(
 }
 
 // Writes (score, query end, target end) of a pair from its trackers.
-// Without ENDS no position was tracked.  K1 and K2 then write -1 in both
-// end planes, as their TPU kernels do; with SCORE_PLANES (K3, K6) the
+// Without ENDS no position was tracked.  K1, K2 and K5 then write -1 in
+// both end planes, as their TPU kernels do; with SCORE_PLANES (K3, K4, K6) the
 // planes hold what those kernels' finalize writes from untracked (-1)
 // positions: nw Q - 1 and len - 1, hw Q - 1 and -1, ov Q - 1 and -1 or,
 // when the last column wins, -1 and len - 1, sw -1 and -1.

@@ -11,21 +11,25 @@ long-query dispatch (`_search_long_pallas`, l.690, here
 Routing is decided before any launch and never after a failure:
 
 - calls inside the reference's kernel predicate (matrix entries within
-  +-256, the exact-value domain of `_fp32_exact_domain`, which also
-  excludes negative gap penalties, and an alphabet of at most 31
-  letters) take the kernels.  Queries of 1..4096 residues go by
-  query-tier cohort: full groups of 8 same-tier queries (tiers 64-512)
-  to the q8 kernel (K2), the rest to the ragged kernel (K1), exactly as
-  `plan_tier_launches` splits them in both packages.  A longer query
-  goes alone: one K1 launch at its fine tier where
+  +-256 and the exact-value domain of `_fp32_exact_domain`, which also
+  excludes negative gap penalties) take the kernels, exactly as the
+  reference routes them.  With a matrix of at most 31 columns
+  (``safe_pad``: the pad symbol 31 scores `PAD_SCORE`), queries of
+  1..4096 residues go by query-tier cohort: full groups of 8 same-tier
+  queries (tiers 64-512) to the q8 kernel (K2), the rest to the ragged
+  kernel (K1), as `plan_tier_launches` splits them in both packages.  A
+  longer query goes alone: one K1 launch at its fine tier where
   `ragged.supports_fine` admits it, else the segmented kernel (K3,
-  `ragged_long`), one launch per 2048 rows.  On CUDA these are the
-  hand-written kernels; on the CPU the same dispatch runs their plain
-  versions.
+  `ragged_long`), one launch per 2048 rows.
+- with a 32-column matrix (no ``safe_pad``) there is no q8 group and no
+  fine tier: each query-tier cohort takes one `ragged.search_flat`
+  launch, K5 (strips of 256 rows) in score mode at tiers 512-4096 and K4
+  otherwise up to tier 2048; a query beyond what `ragged.supports`
+  admits (ends beyond 2048 residues, any mode beyond 4096) takes K3.
+- on CUDA these are the hand-written kernels; on the CPU the same
+  dispatch runs their plain versions.
 - everything else takes the int32 column sweep (`ops.sweep`), on the
-  same device: empty queries get `_empty_query_results`.  The reference
-  sends 32-letter alphabets to kernels not ported yet (the v1 ragged
-  kernels).
+  same device: empty queries get `_empty_query_results`.
 
 Results are assembled into global target order on the device and come
 back to the host in one copy per launch (per long query).
@@ -224,17 +228,17 @@ def plan_tier_launches(queries_enc, safe_pad):
 
 def _search_batch_kernels(
     database, start, end, queries_enc, matrix, go, ge, algorithm,
-    with_ends, device,
+    with_ends, device, safe_pad,
 ):
     """Kernel route: one launch per query-tier cohort (q8 launches of
     up to `_Q8_LAUNCH_GROUPS` groups, then a ragged launch for the
-    leftovers)."""
+    leftovers; without ``safe_pad`` the ragged launch alone)."""
     nq = len(queries_enc)
     n = max(end - start, 0)
     launches = []  # (device tensor, row -> query-index list)
 
     for _, lanes_q8, groups, v2_idx in plan_tier_launches(
-        queries_enc, safe_pad=True
+        queries_enc, safe_pad
     ):
         if groups:
             fpw = packing.pack_database_slice_flat(
@@ -265,6 +269,7 @@ def _search_batch_kernels(
             s, qe, te = ragged.search_flat(
                 profs, qlens, flat_t, lengths, bos, cos, los,
                 int(go), int(ge), algorithm, with_ends, chunk=fp.chunk,
+                safe_pad=safe_pad,
             )
             launches.append((
                 _assemble_flat(inv_pos, s, qe, te, with_ends),
@@ -367,13 +372,17 @@ def search_scores_batch(
     queries_enc = [np.asarray(q, dtype=np.uint8) for q in queries_enc]
     use_kernels = (
         np.abs(matrix).max(initial=0) <= 256
-        and matrix.shape[1] <= 31
         and _fp32_exact_domain(
             database, start, end, queries_enc, matrix, gap_open, gap_extend
         )
     )
+    # pad symbol 31 scores PAD for every query row iff the alphabet
+    # leaves profile column 31 unused
+    safe_pad = matrix.shape[1] <= 31
     kernel_ok = [
-        use_kernels and ragged.supports(q.shape[0]) for q in queries_enc
+        use_kernels
+        and ragged.supports(q.shape[0], algorithm, with_ends, safe_pad)
+        for q in queries_enc
     ]
     long_idx = [
         i for i, q in enumerate(queries_enc)
@@ -389,6 +398,7 @@ def search_scores_batch(
         s, qe, te = _search_batch_kernels(
             database, start, end, [queries_enc[i] for i in dev_idx],
             matrix, gap_open, gap_extend, algorithm, with_ends, device,
+            safe_pad,
         )
         for k, i in enumerate(dev_idx):
             scores[i], q_ends[i], t_ends[i] = s[k], qe[k], te[k]
@@ -396,7 +406,7 @@ def search_scores_batch(
     for i in long_idx:
         scores[i], q_ends[i], t_ends[i] = _search_long_kernels(
             database, start, end, queries_enc[i], matrix, gap_open,
-            gap_extend, algorithm, with_ends, device,
+            gap_extend, algorithm, with_ends, device, safe_pad,
         )
 
     sweep_idx = [
@@ -421,11 +431,12 @@ def search_scores_batch(
 
 def _search_long_kernels(
     database, start, end, query_enc, matrix, go, ge, algorithm, with_ends,
-    device,
+    device, safe_pad,
 ):
-    """One query beyond the power-of-two tiers: a single K1 launch at its
-    fine tier (`ragged.fine_qpad`) where `ragged.supports_fine` admits
-    it, else the segmented kernel K3 (`ragged_long.search_flat_long`).
+    """One query beyond what `ragged.supports` admits: a single K1 launch
+    at its fine tier (`ragged.fine_qpad`) where ``safe_pad`` holds and
+    `ragged.supports_fine` admits it, else the segmented kernel K3
+    (`ragged_long.search_flat_long`).
 
     Returns the three result planes as numpy arrays in slice-local
     target order, copied back in one transfer.
@@ -433,7 +444,7 @@ def _search_long_kernels(
     fp = packing.pack_database_slice_flat(database, start, end)
     flat_t, lengths, bos, cos, los, inv_pos = _flat_device(fp, device)
     Q = int(query_enc.shape[0])
-    if ragged.supports_fine(Q, algorithm, with_ends):
+    if safe_pad and ragged.supports_fine(Q, algorithm, with_ends):
         profs = ragged.make_profiles_host(
             [query_enc], matrix, q_pad=ragged.fine_qpad(Q)
         )
@@ -441,7 +452,7 @@ def _search_long_kernels(
             torch.as_tensor(profs).to(device),
             torch.tensor([Q], dtype=torch.int32, device=device),
             flat_t, lengths, bos, cos, los, int(go), int(ge), algorithm,
-            with_ends, chunk=fp.chunk,
+            with_ends, chunk=fp.chunk, safe_pad=True,
         )
     else:
         s, qe, te = ragged_long.search_flat_long(

@@ -17,7 +17,8 @@ As in `pyopal_tpu_torch.ops.ragged`:
   plain version and counts `plain_calls`.  A CUDA tensor never falls
   back.
 - `search_group_reference`, the plain PyTorch version: a column sweep
-  over every profile row with ``torch.cummax`` for the vertical gap.
+  over every profile row with ``torch.cummax`` for the vertical gap
+  (`sweep.sweep_all_rows`, shared with K4 and K5).
 
 Outputs follow the reference kernel on every lane, padding lanes
 included: it walks all ``Q_pad`` profile rows (rows past the query score
@@ -33,7 +34,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models import ALGORITHMS
 from . import sweep
 from .ragged import ALGO_CODES, ALPHA, PAD_SCORE, launch_plan
 
@@ -156,112 +156,15 @@ def search_group(
 def search_group_reference(
     prof_and_q, targets, lengths, go, ge, algorithm, with_ends=True
 ):
-    """Plain PyTorch version of `search_group` (same inputs, outputs).
-
-    A column sweep over all ``Q_pad`` profile rows, vectorized over rows
-    and the lanes still inside their target (lanes visited in length
-    order).  The vertical gap follows the identity of `ops.sweep`, with
-    the closed-form row above the query as the prefix max's first term.
-    """
+    """Plain PyTorch version of `search_group` (same inputs, outputs):
+    `sweep.sweep_all_rows`, the column sweep over all ``Q_pad`` profile
+    rows, over the group's lanes."""
     prof, Q = prof_and_q
-    Q = int(Q)
-    spec = ALGORITHMS[algorithm]
-    dev = prof.device
-    i32 = torch.int32
-    go, ge = int(go), int(ge)
-    gmin = min(go, ge)
-    R = prof.shape[0]
     n_blocks, t_pad, lanes = targets.shape
-    N = n_blocks * lanes
-
-    lens_h = lengths.reshape(-1).cpu().numpy().astype(np.int64)
-    order = np.argsort(lens_h, kind="stable")
-    sorted_lens = lens_h[order]
-    t_max = int(sorted_lens[-1]) if N else 0
-    first_active = np.searchsorted(sorted_lens, np.arange(t_max), "right")
-    perm = torch.as_tensor(order, device=dev)
-    lens = torch.as_tensor(sorted_lens, device=dev).to(i32)
-    # column j of lane n (block n // lanes, lane n % lanes) at tgt[j, n]
-    tgt = targets.permute(1, 0, 2).reshape(t_pad, N)[:t_max, perm].long()
-
-    r = torch.arange(R + 1, device=dev, dtype=i32)[:, None]
-    rows = r[:-1]
-    if spec.penalize_first_col:
-        H = -(go + rows * ge)
-        empty = -(go + (Q - 1) * ge)
-    else:
-        H = torch.zeros_like(rows)
-        empty = 0
-    H = H.to(i32).expand(R, N).clone()
-    E = torch.full((R, N), NEG, dtype=i32, device=dev)
-
-    def full(v):
-        return torch.full((N,), v, dtype=i32, device=dev)
-
-    best = full(empty if algorithm == "hw" else 0)
-    cap = full(empty if algorithm == "nw" else NEG)
-    bi, bj, ci = full(-1), full(-1), full(-1)
-
-    for j in range(t_max):
-        k = int(first_active[j])
-        if spec.penalize_first_row:
-            row0_prev = 0 if j == 0 else -(go + (j - 1) * ge)
-            row0_cur = -(go + j * ge)
-        else:
-            row0_prev = row0_cur = 0
-        Hs = H[:, k:]
-        E_new = torch.maximum(Hs - go, E[:, k:] - ge)
-        above = torch.cat([torch.full_like(Hs[:1], row0_prev), Hs[:-1]])
-        tmp = torch.maximum(above + prof.index_select(1, tgt[j, k:]), E_new)
-        if spec.clamp_zero:
-            tmp.clamp_(min=0)
-        # F[i] = max(row0 - go - i*gmin, max_{m < i} tmp[m] - go
-        #            - (i-1-m)*gmin)
-        tmp_full = torch.cat([torch.full_like(tmp[:1], row0_cur), tmp])
-        cmax = torch.cummax(tmp_full + r * gmin, dim=0).values
-        F = cmax[:-1] - go - rows * gmin
-        H_new = torch.maximum(tmp, F)
-        H[:, k:] = H_new
-        E[:, k:] = E_new
-
-        at_end = lens[k:] == j + 1
-        if spec.track_all_cells or spec.track_last_col:
-            colmax = H_new.max(dim=0).values
-            coli = torch.where(H_new == colmax, rows, R).amin(0).to(i32)
-        if spec.track_all_cells:  # sw
-            upd = colmax > best[k:]
-            best[k:] = torch.where(upd, colmax, best[k:])
-            if with_ends:
-                bi[k:] = torch.where(upd, coli, bi[k:])
-                bj[k:] = torch.where(upd, j, bj[k:])
-        if spec.track_last_row:  # hw / ov
-            upd = H_new[Q - 1] > best[k:]
-            best[k:] = torch.where(upd, H_new[Q - 1], best[k:])
-            if with_ends:
-                bj[k:] = torch.where(upd, j, bj[k:])
-        if spec.track_terminal:  # nw
-            cap[k:] = torch.where(at_end, H_new[Q - 1], cap[k:])
-        if spec.track_last_col:  # ov
-            cap[k:] = torch.where(at_end, colmax, cap[k:])
-            if with_ends:
-                ci[k:] = torch.where(at_end, coli, ci[k:])
-
-    qlast = full(Q - 1)
-    tlast = lens - 1
-    if algorithm == "sw":
-        hit = best > 0
-        out = (best, torch.where(hit, bi, -1), torch.where(hit, bj, -1))
-    elif algorithm == "nw":
-        out = (cap, qlast, tlast)
-    elif algorithm == "hw":
-        out = (best, qlast, bj)
-    else:  # ov: ties go to the last-row end
-        use_col = cap > best
-        out = (
-            torch.maximum(best, cap),
-            torch.where(use_col, ci, qlast),
-            torch.where(use_col, tlast, bj),
-        )
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(N, device=dev)
-    return tuple(x.to(i32)[inv].reshape(n_blocks, lanes) for x in out)
+    # column j of lane n (block n // lanes, lane n % lanes) at cols[j, n]
+    cols = targets.permute(1, 0, 2).reshape(t_pad, n_blocks * lanes)
+    out = sweep.sweep_all_rows(
+        prof[None], [int(Q)], cols, lengths.reshape(-1), go, ge, algorithm,
+        with_ends,
+    )
+    return tuple(x[0].reshape(n_blocks, lanes) for x in out)

@@ -1,19 +1,24 @@
-"""Query-grouped kernel over the flat packed database (K2).
+"""Query-grouped kernels over the flat packed database (K2, K7).
 
 Port of ``pyopal_tpu/ops/pallas_q8.py``: `search_flat_q8` (l.467) with
-the `_q8_kernel` kernel (l.138, ``narrow=False``) and
-`make_profiles_q8_host` (l.109).  The kernel is hand-written CUDA C++ in
-``csrc/q8.cu``.  The interface is the reference's: groups of `QB`
-same-tier queries with row-interleaved profiles, per-slot lengths
-``qv`` and per-group row bounds ``maxq``, over 256- or 512-lane packs,
-giving ``(n_groups, n_blocks, QB, lanes)`` outputs, so the engine's
-`plan_tier_launches` and q8 assembly are unchanged.  On the GPU the
-group of 8 has no hardware meaning: each (group, slot, lane) is one
-thread whose row loop ends at its own query length.
+the `_q8_kernel` kernel (l.138) and `make_profiles_q8_host` (l.109).
+The kernel runs in two forms, each hand-written CUDA C++: the exact
+int32 pass, ``narrow=False`` (K2, ``csrc/q8.cu``), and the saturating sw
+score-only pass, ``narrow=True`` (K7, ``csrc/q8_narrow.cu``; l.180-202,
+310-313), whose scores are min(sw score, `NARROW_CAP`): a lane that reads
+`NARROW_CAP` is flagged for an exact rescore, every other lane is exact.
+The interface is the reference's: groups of `QB` same-tier queries with
+row-interleaved profiles, per-slot lengths ``qv`` and per-group row
+bounds ``maxq``, over 256- or 512-lane packs, giving ``(n_groups,
+n_blocks, QB, lanes)`` outputs, so the engine's `plan_tier_launches` and
+q8 assembly are unchanged.  On the GPU the group of 8 has no hardware
+meaning: each (group, slot, lane) is one thread whose row loop ends at
+its own query length.
 
 As in `pyopal_tpu_torch.ops.ragged`: `search_flat_q8` launches the
-kernel for CUDA tensors (counting `launches`) and takes the plain
-version `search_flat_q8_reference` for CPU tensors only.
+kernel for CUDA tensors (counted in `launches` by kernel) and takes the
+plain version `search_flat_q8_reference` (K2's, or with ``narrow``
+K7's) for CPU tensors only (counted in `plain_calls`).
 """
 
 from __future__ import annotations
@@ -34,11 +39,14 @@ from .ragged import (
 QB = 8  # queries per group
 #: largest query tier the kernel takes (reference ``MAX_QPAD``)
 MAX_QPAD = 1024
+#: the narrow pass's clamp on H (reference ``NARROW_CAP``)
+NARROW_CAP = 255
 
-#: plain-version runs made by the wrapper on CPU tensors
-plain_calls = 0
-#: kernel launches made by `search_flat_q8` on CUDA tensors
-launches = 0
+#: kernel launches made by `search_flat_q8` on CUDA tensors, by kernel
+#: (K2, and K7 with ``narrow``)
+launches = {"q8": 0, "q8_narrow": 0}
+#: plain-version runs made by the wrapper on CPU tensors, by kernel
+plain_calls = dict.fromkeys(launches, 0)
 
 
 def plan_groups(qlens) -> list:
@@ -90,20 +98,25 @@ def search_flat_q8(
     algorithm,
     with_ends,
     chunk=64,
+    narrow=False,
 ):
     """All query groups x the whole flat-packed database.
 
     One kernel launch, or several where one launch's H/E scratch would
     exceed `ragged.SCRATCH_BYTES` (`ragged.launch_plan`); each adds one
-    to `launches`.
+    to ``launches["q8"]`` (K2) or, with ``narrow``,
+    ``launches["q8_narrow"]`` (K7).
 
     ``qv`` must be constant along lanes (as `make_profiles_q8_host`
     builds it): both versions read each slot's length at lane 0.
     ``maxq`` is checked for shape only; each slot's row loop ends at
     its own length.  Returns ``(scores, q_ends, t_ends)`` of shape
     ``(n_groups, n_blocks, QB, lanes)`` int32.
+
+    ``narrow=True`` (sw score-only, gaps in ``[0, NARROW_CAP]``, else
+    `ValueError` as in the reference) runs the saturating pass: scores
+    are min(sw score, `NARROW_CAP`), both end planes -1.
     """
-    global launches, plain_calls
     dev = profs.device
     check_flat(flat_targets, lengths, bos, cos, los, dev)
     for name, t in (("profs", profs), ("qv", qv), ("maxq", maxq)):
@@ -124,11 +137,22 @@ def search_flat_q8(
         raise ValueError("qv must be (n_groups, 8, lanes), maxq (n_groups,)")
     if algorithm not in ALGO_CODES:
         raise ValueError(f"invalid algorithm: {algorithm!r}")
+    if narrow and not (
+        algorithm == "sw"
+        and not with_ends
+        and 0 <= go <= NARROW_CAP
+        and 0 <= ge <= NARROW_CAP
+    ):
+        raise ValueError(
+            "narrow=True supports only sw score-only with gap "
+            f"parameters in [0, {NARROW_CAP}]"
+        )
+    name = "q8_narrow" if narrow else "q8"
     if dev.type == "cpu":
-        plain_calls += 1
+        plain_calls[name] += 1
         return search_flat_q8_reference(
-            profs, qv, maxq, flat_targets, lengths, bos, cos, los,
-            go, ge, algorithm, with_ends, chunk,
+            profs, qv, maxq, flat_targets, lengths, bos, cos, los, go, ge,
+            algorithm, with_ends, chunk, narrow,
         )
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -141,19 +165,23 @@ def search_flat_q8(
         torch.empty((n_g, n_blocks, QB, lanes), dtype=torch.int32, device=dev)
         for _ in range(3)
     ]
-    units, n_lanes, chunks = launch_plan(n_g, QB * q_pad, n_blocks * lanes)
+    # H/E scratch: K2's int2, 8 bytes a cell; K7's short2, 4 bytes
+    dtype, cell_bytes = (torch.int16, 4) if narrow else (torch.int32, 8)
+    units, n_lanes, chunks = launch_plan(
+        n_g, QB * q_pad, n_blocks * lanes, cell_bytes=cell_bytes
+    )
     scratch = torch.empty(
-        (units, QB * q_pad, n_lanes, 2), dtype=torch.int32, device=dev
+        (units, QB * q_pad, n_lanes, 2), dtype=dtype, device=dev
     )
     for g0, g1, n0, n1 in chunks:  # one stream: launches reuse scratch
         _cuda.launch(
-            "q8",
+            name,
             profs[g0:g1], qv[g0:g1], flat_targets, lengths, row_off,
             *(o[g0:g1] for o in outs), scratch,
             g1 - g0, q_pad, n_blocks, lanes, n0, n1 - n0, int(go), int(ge),
             ALGO_CODES[algorithm], int(bool(with_ends)),
         )
-        launches += 1
+        launches[name] += 1
     return tuple(outs)
 
 
@@ -171,8 +199,13 @@ def search_flat_q8_reference(
     algorithm,
     with_ends,
     chunk=64,
+    narrow=False,
 ):
-    """Plain PyTorch version of `search_flat_q8` (same inputs, outputs)."""
+    """Plain PyTorch version of `search_flat_q8` (same inputs, outputs).
+
+    With ``narrow`` (K7's plain version): the sw score-only scores,
+    clamped at `NARROW_CAP`, with -1 in both end planes.
+    """
     del maxq, cos, los
     n_g = profs.shape[0]
     q_pad = profs.shape[1] // QB
@@ -193,6 +226,8 @@ def search_flat_q8_reference(
         ge,
         algorithm,
     )
+    if narrow:
+        s = s.clamp(max=NARROW_CAP)
     if not with_ends:
         qe = torch.full_like(s, -1)
         te = torch.full_like(s, -1)
@@ -200,3 +235,4 @@ def search_flat_q8_reference(
         x.reshape(n_g, QB, n_blocks, lanes).permute(0, 2, 1, 3).contiguous()
         for x in (s, qe, te)
     )
+

@@ -224,6 +224,141 @@ def sweep_batch(profs, qlens, targets, lengths, go, ge, algorithm):
     return tuple(x.to(i32)[:, inv] for x in out)
 
 
+def sweep_all_rows(profs, qlens, targets, lengths, go, ge, algorithm,
+                   with_ends):
+    """Score + end locations over every profile row, pad rows included.
+
+    The plain version of the kernels that walk all ``R`` rows of their
+    profiles as their TPU kernels do (K4, K5, K6): rows past a query's
+    length score what the profile holds there (``PAD_SCORE``), and sw's
+    best cell and ov's last-column maximum range over them; hw, ov and nw
+    read the query's last row at ``Q - 1``.  Ties go to the larger score,
+    then the lower column, then the lower row.  In score mode the end
+    planes hold what those kernels' finalize writes from untracked
+    positions: nw ``Q - 1`` and ``len - 1``, hw ``Q - 1`` and -1, ov
+    ``Q - 1`` and -1 or -1 and ``len - 1``, sw -1 and -1.
+
+    Arguments:
+        profs: ``(n_q, R, A)`` int32 profiles.
+        qlens: ``(n_q,)`` query lengths, each in ``[1, R]``.
+        targets / lengths: ``(T, N)`` symbols and ``(N,)`` lengths, as
+            `sweep_batch` takes them.
+
+    Returns:
+        ``(scores, query_end, target_end)``, int32 of shape ``(n_q, N)``.
+
+    A column sweep vectorized over queries, rows and the lanes still
+    inside their target; the vertical gap follows the identity of the
+    module docstring, with the closed-form row above the query as the
+    prefix max's first term.
+    """
+    spec = ALGORITHMS[algorithm]
+    dev = profs.device
+    i32 = torch.int32
+    go, ge = int(go), int(ge)
+    gmin = min(go, ge)
+    n_q, R, _ = profs.shape
+    N = lengths.shape[0]
+
+    lens_h = lengths.cpu().numpy().astype(np.int64)
+    order = np.argsort(lens_h, kind="stable")
+    sorted_lens = lens_h[order]
+    t_max = int(sorted_lens[-1]) if N else 0
+    first_active = np.searchsorted(sorted_lens, np.arange(t_max), "right")
+    perm = torch.as_tensor(order, device=dev)
+    lens = torch.as_tensor(sorted_lens, device=dev).to(i32)
+    tgt = targets[:t_max, perm].long()
+    Q = torch.as_tensor(qlens, device=dev).to(torch.int64).reshape(n_q, 1)
+    last = (Q - 1)[:, :, None]  # (n_q, 1, 1) row index for `gather`
+
+    r = torch.arange(R + 1, device=dev, dtype=i32)[:, None]
+    rows = r[:-1]
+    if spec.penalize_first_col:
+        H = -(go + rows * ge)
+        empty = -(go + (Q - 1) * ge)  # (n_q, 1)
+    else:
+        H = torch.zeros_like(rows)
+        empty = torch.zeros_like(Q)
+    H = H.to(i32).expand(n_q, R, N).clone()
+    E = torch.full((n_q, R, N), NEG, dtype=i32, device=dev)
+
+    def full(v):
+        return (torch.zeros((n_q, N), dtype=i32, device=dev) + v).to(i32)
+
+    best = full(empty if algorithm == "hw" else 0)
+    cap = full(empty if algorithm == "nw" else NEG)
+    bi, bj, ci = full(-1), full(-1), full(-1)
+
+    for j in range(t_max):
+        k = int(first_active[j])
+        if spec.penalize_first_row:
+            row0_prev = 0 if j == 0 else -(go + (j - 1) * ge)
+            row0_cur = -(go + j * ge)
+        else:
+            row0_prev = row0_cur = 0
+        Hs = H[:, :, k:]
+        E_new = torch.maximum(Hs - go, E[:, :, k:] - ge)
+        above = torch.cat([torch.full_like(Hs[:, :1], row0_prev), Hs[:, :-1]],
+                          dim=1)
+        tmp = torch.maximum(above + profs.index_select(2, tgt[j, k:]), E_new)
+        if spec.clamp_zero:
+            tmp.clamp_(min=0)
+        # F[i] = max(row0 - go - i*gmin, max_{m < i} tmp[m] - go
+        #            - (i-1-m)*gmin)
+        tmp_full = torch.cat([torch.full_like(tmp[:, :1], row0_cur), tmp],
+                             dim=1)
+        cmax = torch.cummax(tmp_full + r * gmin, dim=1).values
+        F = cmax[:, :-1] - go - rows * gmin
+        H_new = torch.maximum(tmp, F)
+        H[:, :, k:] = H_new
+        E[:, :, k:] = E_new
+
+        at_end = lens[k:] == j + 1
+        if spec.track_all_cells or spec.track_last_col:
+            colmax = H_new.max(dim=1).values
+            coli = torch.where(H_new == colmax[:, None], rows, R).amin(1)
+            coli = coli.to(i32)
+        if spec.track_last_row or spec.track_terminal:
+            rowval = H_new.gather(1, last.expand(n_q, 1, N - k))[:, 0]
+        if spec.track_all_cells:  # sw
+            upd = colmax > best[:, k:]
+            best[:, k:] = torch.where(upd, colmax, best[:, k:])
+            if with_ends:
+                bi[:, k:] = torch.where(upd, coli, bi[:, k:])
+                bj[:, k:] = torch.where(upd, j, bj[:, k:])
+        if spec.track_last_row:  # hw / ov
+            upd = rowval > best[:, k:]
+            best[:, k:] = torch.where(upd, rowval, best[:, k:])
+            if with_ends:
+                bj[:, k:] = torch.where(upd, j, bj[:, k:])
+        if spec.track_terminal:  # nw
+            cap[:, k:] = torch.where(at_end, rowval, cap[:, k:])
+        if spec.track_last_col:  # ov
+            cap[:, k:] = torch.where(at_end, colmax, cap[:, k:])
+            if with_ends:
+                ci[:, k:] = torch.where(at_end, coli, ci[:, k:])
+
+    qlast = full(Q - 1)
+    tlast = (lens - 1).expand(n_q, N)
+    if algorithm == "sw":
+        hit = best > 0
+        out = (best, torch.where(hit, bi, -1), torch.where(hit, bj, -1))
+    elif algorithm == "nw":
+        out = (cap, qlast, tlast)
+    elif algorithm == "hw":
+        out = (best, qlast, bj)
+    else:  # ov: ties go to the last-row end
+        use_col = cap > best
+        out = (
+            torch.maximum(best, cap),
+            torch.where(use_col, ci, qlast),
+            torch.where(use_col, tlast, bj),
+        )
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(N, device=dev)
+    return tuple(x.to(i32)[:, inv] for x in out)
+
+
 def search_block(prof_t, targets, lengths, go, ge, algorithm):
     """Port of the reference `search_block`: one query, one block.
 

@@ -160,7 +160,8 @@ def align_arrays_sharded(
                 out["target_ends"] = np.full((nq, n), -1, np.int32)
             return out
 
-        # the kernels' predicate, as in the single-device engine
+        # the kernels' predicate, as in the single-device engine; an
+        # alphabet has at most 27 letters, so ``safe_pad`` holds (K1, K2)
         use_mesh = (
             np.abs(matrix).max(initial=0) <= 256
             and matrix.shape[1] <= 31
@@ -169,8 +170,12 @@ def align_arrays_sharded(
                 gap_extend,
             )
         )
-        mesh_ok = [use_mesh and ragged.supports(q.shape[0])
-                   for q in queries_enc]
+        mesh_ok = [
+            use_mesh
+            and ragged.supports(q.shape[0], algorithm, with_ends,
+                                safe_pad=True)
+            for q in queries_enc
+        ]
         mesh_idx = [i for i, ok in enumerate(mesh_ok) if ok]
         fb_idx = [i for i, ok in enumerate(mesh_ok) if not ok]
 
@@ -223,6 +228,7 @@ def align_arrays_sharded(
                 s, qe, te = sfm.sharded_search_flat(
                     mesh, profs, qlens, _pack(sfm.LANES), gap_open,
                     gap_extend, algorithm, with_ends=with_ends,
+                    safe_pad=True,
                 )
                 _store(
                     [(row, mesh_idx[qi]) for row, qi in enumerate(v2_idx)],

@@ -1,4 +1,4 @@
-"""Sharded flat search: K1 and K2 over a mesh of database shards.
+"""Sharded flat search: the flat kernels over a mesh of database shards.
 
 Port of ``pyopal_tpu/parallel/sharded_flat.py``.  The length-sorted
 blocks of the flat layout (`pyopal_tpu_torch.ops.packing.flat_layout`)
@@ -244,15 +244,17 @@ def sharded_search_flat_device(
     ge: int,
     algorithm: str,
     with_ends: bool = True,
+    safe_pad: bool = False,
 ):
-    """K1 (`ragged.search_flat`) once on each of this rank's shards,
-    leaving the outputs on the shards' devices.
+    """`ragged.search_flat` once on each of this rank's shards, leaving
+    the outputs on the shards' devices.
 
     ``profs``/``qlens`` are `ragged.make_profiles_host`'s profiles and
-    the query lengths (numpy, or tensors on any device).  Returns
-    ``{shard: (scores, q_ends, t_ends)}``, each ``(n_q, nblk_max,
-    lanes)`` int32.  The reference's ``interpret`` and ``safe_pad``
-    arguments have no counterpart: K1 is the ``safe_pad`` kernel.
+    the query lengths (numpy, or tensors on any device).  ``safe_pad``
+    routes as in `ragged.search_flat`: K1 with it, K4 or K5 without it
+    (the reference's default).  Returns ``{shard: (scores, q_ends,
+    t_ends)}``, each ``(n_q, nblk_max, lanes)`` int32.  The reference's
+    ``interpret`` argument has no counterpart.
     """
     out = {}
     for s, (flat_t, lengths, bos, cos, los) in _device_arrays(
@@ -262,6 +264,7 @@ def sharded_search_flat_device(
         out[s] = ragged.search_flat(
             _on(profs, dev), _on(qlens, dev), flat_t, lengths, bos, cos,
             los, int(go), int(ge), algorithm, with_ends, chunk=sf.chunk,
+            safe_pad=safe_pad,
         )
     return out
 
@@ -275,16 +278,21 @@ def sharded_search_flat(
     ge: int,
     algorithm: str,
     with_ends: bool = True,
+    safe_pad: bool = False,
 ):
-    """K1 over the mesh, gathered into global target order.
+    """`sharded_search_flat_device` gathered into global target order.
 
-    Returns ``(scores, q_ends, t_ends)`` numpy arrays of shape ``(n_q,
-    n_targets)``, the same on every rank.
+    Pass ``safe_pad=True`` when the scoring matrix leaves profile column
+    31 unused (every bundled matrix) for K1 on each shard; the default,
+    the reference's, runs K4 or K5.  Returns ``(scores, q_ends,
+    t_ends)`` numpy arrays of shape ``(n_q, n_targets)``, the same on
+    every rank.
     """
     n_q = int(profs.shape[0])
     nblk_max = sf.lengths.shape[1]
     outs = sharded_search_flat_device(
-        mesh, profs, qlens, sf, go, ge, algorithm, with_ends=with_ends
+        mesh, profs, qlens, sf, go, ge, algorithm, with_ends=with_ends,
+        safe_pad=safe_pad,
     )
     # (n_shards, 3, n_q, nblk_max, lanes) -> (3, n_q, global target)
     stacked = _gather_host(mesh, {s: torch.stack(o) for s, o in outs.items()})

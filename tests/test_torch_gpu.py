@@ -56,11 +56,12 @@ def test_ragged_kernel_matches_plain(dev, algo, with_ends):
     args = (
         torch.from_numpy(ragged.make_profiles_host(queries, S)).to(dev),
         torch.tensor([200, 31], dtype=torch.int32, device=dev),
-        *_flat(fp, dev), 3, 1, algo, with_ends, fp.chunk,
+        *_flat(fp, dev), 3, 1, algo, with_ends, fp.chunk, True,
     )
-    before = ragged.launches
+    before = dict(ragged.launches)
     _equal(ragged.search_flat(*args), ragged.search_flat_reference(*args))
-    assert ragged.launches == before + 1
+    before["ragged"] += 1
+    assert ragged.launches == before
 
 
 @pytest.mark.parametrize("with_ends", [False, True])
@@ -77,9 +78,10 @@ def test_q8_kernel_matches_plain(dev, algo, with_ends):
         *(torch.from_numpy(a).to(dev) for a in arrays),
         *_flat(fp, dev), 0, 2, algo, with_ends, fp.chunk,
     )
-    before = q8.launches
+    before = dict(q8.launches)
     _equal(q8.search_flat_q8(*args), q8.search_flat_q8_reference(*args))
-    assert q8.launches == before + 1
+    before["q8"] += 1
+    assert q8.launches == before
 
 
 @pytest.mark.parametrize("split", ["lanes", "units"])
@@ -98,7 +100,7 @@ def test_kernel_split_by_scratch_budget_matches_plain(
         args = (
             torch.from_numpy(ragged.make_profiles_host(queries, S)).to(dev),
             torch.tensor(qls, dtype=torch.int32, device=dev),
-            *_flat(fp, dev), 3, 1, "sw", True, fp.chunk,
+            *_flat(fp, dev), 3, 1, "sw", True, fp.chunk, True,
         )
         mod, fn, plain, n_units = ragged, ragged.search_flat, \
             ragged.search_flat_reference, len(qls)
@@ -121,9 +123,9 @@ def test_kernel_split_by_scratch_budget_matches_plain(
     monkeypatch.setattr(ragged, "SCRATCH_BYTES", 8 * unit_rows * lanes_per_unit)
     want = n_units * (-(-n_lanes // lanes_per_unit))
     assert want > 1
-    before = mod.launches
+    before = mod.launches[kernel]
     _equal(fn(*args), plain(*args))
-    assert mod.launches == before + want
+    assert mod.launches[kernel] == before + want
 
 
 def _segments_equal(q, fp, dev, algo, with_ends, qseg):
@@ -187,9 +189,134 @@ def test_ragged_kernel_fine_tier_matches_plain(dev, algo):
     args = (
         torch.from_numpy(profs).to(dev),
         torch.tensor([4200], dtype=torch.int32, device=dev),
-        *_flat(fp, dev), 3, 1, algo, True, fp.chunk,
+        *_flat(fp, dev), 3, 1, algo, True, fp.chunk, True,
     )
     _equal(ragged.search_flat(*args), ragged.search_flat_reference(*args))
+
+
+def _v1_args(dev, seed, qls, algo, with_ends, alphabet=20, matrix=S,
+             go=3, ge=1, n_seqs=1):
+    """K4/K5 inputs: ``qls`` queries (the first holding 30 residues of a
+    target) over the edge lengths, ``n_seqs`` times over."""
+    rng = np.random.default_rng(seed)
+    seqs = [rng.integers(0, alphabet, n).astype(np.uint8)
+            for n in LENGTHS * n_seqs]
+    queries = [rng.integers(0, alphabet, n).astype(np.uint8) for n in qls]
+    queries[0][3:33] = seqs[8][100:130]
+    fp = packing.pack_sequences_flat(seqs)
+    return (
+        torch.from_numpy(ragged.make_profiles_host(queries, matrix)).to(dev),
+        torch.tensor(qls, dtype=torch.int32, device=dev),
+        *_flat(fp, dev), go, ge, algo, with_ends, fp.chunk,
+    )
+
+
+@pytest.mark.parametrize("gaps", [(3, 1), (1, 3), (0, 0)])
+@pytest.mark.parametrize("with_ends", [False, True])
+@pytest.mark.parametrize("algo", ["nw", "hw", "ov", "sw"])
+def test_ragged_v1_kernel_matches_plain(dev, algo, with_ends, gaps):
+    """K4 (no ``safe_pad``) at the 256 tier, every plane, pad rows
+    included (a 31-residue query)."""
+    args = _v1_args(dev, 13, [200, 31], algo, with_ends, go=gaps[0],
+                    ge=gaps[1])
+    before = dict(ragged.launches)
+    _equal(ragged.search_flat(*args), ragged.search_flat_reference(*args))
+    before["ragged_v1"] += 1
+    assert ragged.launches == before
+
+
+@pytest.mark.parametrize("gaps", [(3, 1), (1, 3), (0, 0)])
+@pytest.mark.parametrize("algo", ["nw", "hw", "ov", "sw"])
+def test_ragged_strip_kernel_matches_plain(dev, algo, gaps):
+    """K5 (score only, no ``safe_pad``) at the 1024 tier: four strips of
+    256 rows, the queries' last rows in the second and fourth, and two
+    of them pad-only."""
+    args = _v1_args(dev, 14, [1000, 300], algo, False, go=gaps[0],
+                    ge=gaps[1])
+    before = dict(ragged.launches)
+    out = ragged.search_flat(*args)
+    _equal(out, ragged.search_flat_reference(*args))
+    before["ragged_strip"] += 1
+    assert ragged.launches == before
+    assert (out[1] == -1).all() and (out[2] == -1).all()
+
+
+@pytest.mark.parametrize("algo, with_ends, tier", [
+    ("sw", True, 64), ("ov", False, 64), ("nw", True, 256),
+    ("hw", False, 512), ("ov", False, 1024),
+])
+def test_symbol_31_as_a_real_letter_matches_plain(dev, algo, with_ends, tier):
+    """A random 32 x 32 matrix, targets and queries over all 32 symbols
+    (symbol 31 too): K4 (tiers 64, 256) and K5 (512, 1024)."""
+    rng = np.random.default_rng(31)
+    m = rng.integers(-6, 7, (32, 32))
+    m = ((m + m.T) // 2).astype(np.int32)
+    qls = {64: [40, 60], 256: [200], 512: [300], 1024: [1000]}[tier]
+    args = _v1_args(dev, 15, qls, algo, with_ends, alphabet=32, matrix=m)
+    _equal(ragged.search_flat(*args), ragged.search_flat_reference(*args))
+
+
+@pytest.mark.parametrize("kernel", ["ragged_v1", "ragged_strip"])
+def test_v1_kernels_split_by_scratch_budget_match_plain(dev, kernel,
+                                                         monkeypatch):
+    """A budget of one query and 128 lanes a launch splits K4 and K5
+    calls over queries and lanes."""
+    ends = kernel == "ragged_v1"
+    qls = [200, 31, 90] if ends else [600, 300]
+    args = _v1_args(dev, 16, qls, "sw", ends, n_seqs=30)
+    n_lanes = args[3].numel()
+    rows = args[2].shape[0]
+    unit_rows = (args[0].shape[1] if ends
+                 else ragged.STRIP + -(-rows // args[3].shape[0]))
+    monkeypatch.setattr(ragged, "SCRATCH_BYTES", 8 * unit_rows * 128)
+    before = ragged.launches[kernel]
+    _equal(ragged.search_flat(*args), ragged.search_flat_reference(*args))
+    want = len(qls) * -(-n_lanes // 128)
+    assert want > len(qls) and ragged.launches[kernel] == before + want
+
+
+def _narrow_args(dev, lanes=512):
+    """Two q8 groups at the 256 tier over the edge lengths 30 times, one
+    query a 250-residue stretch of a target: its lane scores past 255."""
+    rng = np.random.default_rng(17)
+    seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in LENGTHS * 30]
+    qls = [256, 129, 200, 255, 140, 180, 222, 250, 64, 1, 40, 63, 7, 50,
+           29, 33]
+    queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
+    queries[7] = seqs[8][:250].copy()
+    fp = packing.pack_sequences_flat(seqs, lanes=lanes)
+    groups = q8.plan_groups(qls)
+    arrays = q8.make_profiles_q8_host(queries, S, groups, lanes=lanes)
+    return (*(torch.from_numpy(a).to(dev) for a in arrays), *_flat(fp, dev))
+
+
+@pytest.mark.parametrize("gaps", [(3, 1), (0, 0), (255, 255)])
+def test_q8_narrow_kernel_matches_plain(dev, gaps):
+    """K7 against its plain version, and its scores min(K2's, 255) on the
+    same tensors, with at least one lane flagged."""
+    args = _narrow_args(dev)
+    before = dict(q8.launches)
+    out = q8.search_flat_q8(*args, *gaps, "sw", False, narrow=True)
+    _equal(out, q8.search_flat_q8_reference(*args, *gaps, "sw", False,
+                                            narrow=True))
+    before["q8_narrow"] += 1
+    assert q8.launches == before
+    exact = q8.search_flat_q8(*args, *gaps, "sw", False)
+    _equal(out[:1], [exact[0].clamp(max=q8.NARROW_CAP)])
+    assert int((out[0] == q8.NARROW_CAP).sum()) >= 1
+
+
+def test_q8_narrow_split_by_scratch_budget_matches_plain(dev, monkeypatch):
+    """A short2 budget of one group and 128 lanes a launch."""
+    args = _narrow_args(dev)
+    unit_rows = args[0].shape[1]
+    monkeypatch.setattr(ragged, "SCRATCH_BYTES", 4 * unit_rows * 128)
+    before = q8.launches["q8_narrow"]
+    _equal(q8.search_flat_q8(*args, 3, 1, "sw", False, narrow=True),
+           q8.search_flat_q8_reference(*args, 3, 1, "sw", False,
+                                       narrow=True))
+    want = args[0].shape[0] * -(-args[4].numel() // 128)
+    assert want > 2 and q8.launches["q8_narrow"] == before + want
 
 
 def _group_args(dev, seed, n_blocks=2):
@@ -243,10 +370,10 @@ def test_sharded_search_on_two_cuda_shards_matches_aligner(dev):
     mesh = device_mesh(2)
     assert mesh.n_shards == 2 and mesh.platform == "cuda"
     for mode in ("score", "end"):
-        before = (ragged.launches, q8.launches)
+        before = (ragged.launches["ragged"], q8.launches["q8"])
         got = align_arrays_sharded(queries, db, mode=mode, mesh=mesh)
-        assert (ragged.launches, q8.launches) == (before[0] + 2 * 2,
-                                                  before[1] + 2)
+        assert (ragged.launches["ragged"], q8.launches["q8"]) == (
+            before[0] + 2 * 2, before[1] + 2)
         want = pt.Aligner(device=dev).align_arrays(queries, db, mode=mode)
         assert got.keys() == want.keys()
         for key in want:

@@ -77,7 +77,8 @@ def _check(queries, seqs, alphabet=None, ref_matrix=None, **kw):
 
 
 def _calls():
-    return ragged.plain_calls, q8.plain_calls, sweep.launches
+    return (ragged.plain_calls["ragged"], q8.plain_calls["q8"],
+            sweep.launches)
 
 
 @pytest.mark.parametrize("mode", ["score", "end"])
@@ -225,6 +226,51 @@ def test_sharded_search_flat_needs_local_payloads():
     with pytest.raises(ValueError, match=r"missing payloads .*\[1\]"):
         sfm.sharded_search_flat(mesh, profs, np.array([30], np.int32), sf,
                                 3, 1, "sw")
+
+
+@pytest.mark.parametrize("algo, with_ends, safe_pad", [
+    ("nw", False, False), ("ov", False, False), ("sw", True, False),
+    ("nw", False, True),
+])
+def test_sharded_search_flat_defaults_match_reference(algo, with_ends,
+                                                      safe_pad):
+    """`sharded_search_flat` at its defaults runs the reference's default,
+    ``safe_pad=False``: K4 on every shard (here its plain version), whose
+    score-mode end planes differ from K1's (nw: query end ``Q - 1`` and
+    target end ``len - 1``; ov: the last row's or the last column's end).
+    Against the reference's interpreted kernels on its 4-device mesh, all
+    three planes, and with ``safe_pad=True`` (K1, -1 planes)."""
+    import jax.numpy as jnp
+
+    from pyopal_tpu.ops import pallas_ragged as pr
+
+    rng = np.random.default_rng(9)
+    seqs = [rng.integers(0, 24, int(n)).astype(np.uint8)
+            for n in [0, 5, 40, 63, 130] + list(rng.integers(1, 150, 300))]
+    queries = [rng.integers(0, 24, 30).astype(np.uint8)]
+    queries[0][5:25] = seqs[2][10:30]
+    profs = ragged.make_profiles_host(queries, S)
+    qlens = np.array([30], np.int32)
+    sf = sfm.pack_flat_sharded(seqs, 4)
+    kw = {"safe_pad": True} if safe_pad else {}
+    calls = dict(ragged.plain_calls)
+    got = sfm.sharded_search_flat(_mesh4(), profs, qlens, sf, 3, 1, algo,
+                                  with_ends, **kw)
+    calls = [ragged.plain_calls[k] - calls[k] for k in ("ragged",
+                                                        "ragged_v1")]
+    assert calls == ([4, 0] if safe_pad else [0, 4])
+    want = ref_sfm.sharded_search_flat(
+        ref_mesh(4), jnp.asarray(profs, jnp.bfloat16), jnp.asarray(qlens),
+        ref_sfm.pack_flat_sharded(seqs, 4), 3, 1, algo, with_ends,
+        interpret=True, **kw,
+    )
+    for g, w in zip(got, want):
+        assert g.dtype == np.int32
+        np.testing.assert_array_equal(g, np.asarray(w))
+    if algo == "nw" and not with_ends:
+        lens = np.array([len(t) for t in seqs])
+        q_end, t_end = (-1, -1) if safe_pad else (29, lens - 1)
+        assert (got[1] == q_end).all() and (got[2] == t_end).all()
 
 
 def _group_of(seqs, n_shards):

@@ -100,4 +100,78 @@ def test_wrapper_rejects_bad_inputs():
     args[0] = args[0].float()
     with pytest.raises(TypeError):
         q8.search_flat_q8(*args, *flat, 3, 1, "sw", True, chunk=fp.chunk)
-    assert q8.launches == 0  # CPU tensors never launch the kernel
+    assert not any(q8.launches.values())  # CPU: no kernel launch
+
+
+def _narrow_inputs(lanes=128):
+    """The 8 queries and 10 targets of the reference's narrow test
+    (``tests/test_q8.py``, seed 77): a 150-residue self-hit scores past
+    the cap."""
+    rng = np.random.default_rng(77)
+    big = rng.integers(0, 20, 150).astype(np.uint8)
+    seqs = [
+        rng.integers(0, 20, int(n)).astype(np.uint8)
+        for n in [0, 1, 40, 63, 64, 65, 90, 150, 17, 33]
+    ]
+    seqs[7] = big.copy()
+    queries = [
+        rng.integers(0, 20, int(n)).astype(np.uint8)
+        for n in (60, 44, 150, 21, 64, 15, 9, 50)
+    ]
+    queries[2] = big.copy()
+    fp = ref_packing.pack_sequences_flat(seqs, lanes=lanes)
+    groups = q8.plan_groups([len(q) for q in queries])
+    arrays = q8.make_profiles_q8_host(queries, S, groups, lanes=lanes)
+    flat = (fp.flat_targets, fp.lengths, fp.block_of_step,
+            fp.chunk_of_step, fp.last_of_step)
+    return fp, groups, arrays, flat
+
+
+@pytest.mark.parametrize("gaps", [(3, 1), (0, 0)])
+def test_narrow_plain_matches_reference(gaps):
+    """K7's plain version against the reference's bf16 narrow pass: all
+    three planes equal, scores min(sw score, NARROW_CAP), the self-hit
+    flagged, both end planes -1."""
+    fp, groups, arrays, flat = _narrow_inputs()
+    profs, qv, maxq = arrays
+    ref = ref_q8.search_flat_q8(
+        jnp.asarray(profs, jnp.bfloat16), jnp.asarray(qv), jnp.asarray(maxq),
+        *[jnp.asarray(a) for a in flat], *gaps, "sw", False,
+        interpret=True, chunk=fp.chunk, narrow=True,
+    )
+    port_args = [torch.from_numpy(a) for a in (*arrays, *flat)]
+    before = dict(q8.plain_calls)
+    got = q8.search_flat_q8(*port_args, *gaps, "sw", False, chunk=fp.chunk,
+                            narrow=True)
+    before["q8_narrow"] += 1
+    assert q8.plain_calls == before
+    for r, g in zip(ref, got):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    exact = q8.search_flat_q8(*port_args, *gaps, "sw", False, chunk=fp.chunk)
+    assert torch.equal(got[0], exact[0].clamp(max=q8.NARROW_CAP))
+    assert (got[0] == q8.NARROW_CAP).sum() >= 1
+    assert (got[1] == -1).all() and (got[2] == -1).all()
+    assert not any(q8.launches.values())
+
+
+@pytest.mark.parametrize("bad", [
+    dict(go=3, ge=1, algo="nw", with_ends=False),
+    dict(go=3, ge=1, algo="sw", with_ends=True),
+    dict(go=300, ge=1, algo="sw", with_ends=False),
+])
+def test_narrow_rejects_unsupported_configs(bad):
+    """Outside sw score-only with gaps in [0, 255], both packages raise
+    the same `ValueError`."""
+    fp, _, arrays, flat = _narrow_inputs()
+    call = (bad["go"], bad["ge"], bad["algo"], bad["with_ends"])
+    with pytest.raises(ValueError) as ref_err:
+        ref_q8.search_flat_q8(
+            jnp.asarray(arrays[0], jnp.bfloat16),
+            *[jnp.asarray(a) for a in (*arrays[1:], *flat)], *call,
+            interpret=True, chunk=fp.chunk, narrow=True,
+        )
+    with pytest.raises(ValueError) as err:
+        q8.search_flat_q8(*[torch.from_numpy(a) for a in (*arrays, *flat)],
+                          *call, chunk=fp.chunk, narrow=True)
+    assert str(err.value) == str(ref_err.value)

@@ -43,7 +43,8 @@ def _compare(ref_args, port_args, go, ge, algo, with_ends, chunk, **kw):
         *ref_args, go, ge, algo, with_ends, interpret=True, chunk=chunk,
         safe_pad=True, **kw,
     )
-    got = ragged.search_flat(*port_args, go, ge, algo, with_ends, chunk=chunk)
+    got = ragged.search_flat(*port_args, go, ge, algo, with_ends, chunk=chunk,
+                             safe_pad=True)
     for r, g in zip(ref, got):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
@@ -103,14 +104,17 @@ def test_wrapper_rejects_bad_inputs():
     bad_dtype = list(port_args)
     bad_dtype[2] = bad_dtype[2].to(torch.int32)
     with pytest.raises(TypeError):
-        ragged.search_flat(*bad_dtype, 3, 1, "sw", True, chunk=fp.chunk)
+        ragged.search_flat(*bad_dtype, 3, 1, "sw", True, chunk=fp.chunk,
+                           safe_pad=True)
     bad_prof = list(port_args)
     bad_prof[0] = bad_prof[0].float()
     with pytest.raises(TypeError):
-        ragged.search_flat(*bad_prof, 3, 1, "sw", True, chunk=fp.chunk)
+        ragged.search_flat(*bad_prof, 3, 1, "sw", True, chunk=fp.chunk,
+                           safe_pad=True)
     with pytest.raises(ValueError):
-        ragged.search_flat(*port_args, 3, 1, "xx", True, chunk=fp.chunk)
-    assert ragged.launches == 0  # CPU tensors never launch the kernel
+        ragged.search_flat(*port_args, 3, 1, "xx", True, chunk=fp.chunk,
+                           safe_pad=True)
+    assert not any(ragged.launches.values())  # CPU: no kernel launch
 
 
 @pytest.mark.parametrize(

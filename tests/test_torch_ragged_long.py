@@ -156,7 +156,8 @@ def _fields(result):
 
 
 def _counts():
-    return (ragged_long.plain_calls, ragged.plain_calls, sweep.launches)
+    return (ragged_long.plain_calls, ragged.plain_calls["ragged"],
+            sweep.launches)
 
 
 def test_fine_tier_route_matches_reference(monkeypatch):
@@ -187,7 +188,7 @@ def test_segmented_route_matches_reference(qseg32, monkeypatch, algo, mode):
     for mod in (pr, ragged):
         monkeypatch.setattr(mod, "supports_fine", lambda *a: False)
     monkeypatch.setattr(pr, "RAGGED_MAX_QPAD_STRIP", 64)
-    monkeypatch.setattr(ragged, "MAX_QPAD", 64)
+    monkeypatch.setattr(ragged, "RAGGED_MAX_QPAD_STRIP", 64)
     ref_al, ref_db, al, db = _api_pair()
     query = "".join(LETTERS[c] for c in _query(100, 7))
     kw = dict(mode=mode, algorithm=algo)
@@ -222,7 +223,7 @@ def test_segmented_batch_beside_short_query(qseg32, monkeypatch):
     for mod in (pr, ragged):
         monkeypatch.setattr(mod, "supports_fine", lambda *a: False)
     monkeypatch.setattr(pr, "RAGGED_MAX_QPAD_STRIP", 64)
-    monkeypatch.setattr(ragged, "MAX_QPAD", 64)
+    monkeypatch.setattr(ragged, "RAGGED_MAX_QPAD_STRIP", 64)
     ref_al, ref_db, al, db = _api_pair()
     query = "".join(LETTERS[c] for c in _query(70, 9))
     queries = [query, query[:30]]

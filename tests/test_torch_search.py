@@ -112,15 +112,63 @@ def test_batch_routes_through_both_kernels(monkeypatch):
     ref_db = po.Database(targets)
     al = pt.Aligner(device="cpu")
     db = pt.Database(targets)
-    counts = (q8.plain_calls, ragged.plain_calls, sweep.launches)
+    counts = (q8.plain_calls["q8"], ragged.plain_calls["ragged"],
+              sweep.launches)
     got = al.align_arrays(queries, db, mode="end")
-    after = (q8.plain_calls, ragged.plain_calls, sweep.launches)
+    after = (q8.plain_calls["q8"], ragged.plain_calls["ragged"],
+             sweep.launches)
     ref = ref_al.align_arrays(queries, ref_db, mode="end")
     for key in ref:
         np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
     assert after[0] - counts[0] == 1  # one q8 launch: the full group
     assert after[1] - counts[1] == 2  # ragged: tier-128 leftovers, tier 64
     assert after[2] == counts[2]  # nothing took the sweep
+
+
+@pytest.mark.parametrize("algo, with_ends", [("sw", False), ("ov", True)])
+def test_32_column_matrix_routes_as_reference(monkeypatch, algo, with_ends):
+    """A 32-column matrix leaves the pad symbol no padding column, so
+    both packages drop ``safe_pad``: no q8 group and no fine tier; the
+    tier-64 cohort takes K4 and, with the tier ceiling of K4 lowered to
+    64 in both packages, a 300-residue query takes K5 in score mode and
+    K3 (10 segments of 32 rows) in end mode.  Against the reference's
+    dispatch with interpreted kernels, all three planes, an empty query
+    included."""
+    from pyopal_tpu.ops import pallas_ragged as pr
+    from pyopal_tpu.ops import pallas_ragged_long as prl
+
+    monkeypatch.setattr(ref_engine, "_INTERPRET", True)
+    for mod in (pr, ragged):
+        monkeypatch.setattr(mod, "RAGGED_MAX_QPAD", 64)
+    for mod in (prl, ragged_long):
+        monkeypatch.setattr(mod, "QSEG", 32)
+    rng = np.random.default_rng(32)
+    m = rng.integers(-5, 6, (32, 32))
+    matrix = ((m + m.T) // 2).astype(np.int32)
+    letters = po.Alphabet().letters
+    targets = [
+        "".join(rng.choice(list(letters[:23]), int(n)))
+        for n in [0, 1, 63, 64, 65, 129] + list(rng.integers(1, 150, 20))
+    ]
+    queries = [rng.integers(0, 24, n).astype(np.uint8)
+               for n in (40, 17, 64, 9, 0, 300)]
+    db, ref_db = pt.Database(targets), po.Database(targets)
+    queries[5][100:130] = db.get_encoded(5)[50:80]
+    n = len(targets)
+    counts = lambda: (q8.plain_calls["q8"],  # noqa: E731
+                      *ragged.plain_calls.values(),
+                      ragged_long.plain_calls, sweep.launches)
+    before = counts()
+    got = engine.search_scores_batch(db, 0, n, queries, matrix, 3, 1, algo,
+                                     with_ends, device="cpu")
+    after = counts()
+    ref = ref_engine.search_scores_batch(ref_db, 0, n, queries, matrix, 3,
+                                         1, algo, with_ends)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+    # q8, K1, K4, K5, K3 (segments), sweep
+    want = [0, 0, 1, 0, 10, 0] if with_ends else [0, 0, 1, 1, 0, 0]
+    assert [a - b for a, b in zip(after, before)] == want
 
 
 def test_sweep_takes_what_the_kernels_do_not():
@@ -134,10 +182,10 @@ def test_sweep_takes_what_the_kernels_do_not():
     )
     targets = ["ACGTTGCA", "", "A", "GGGG"]
     db = pt.Database(targets, alphabet=letters)
-    before = (sweep.launches, ragged.plain_calls)
+    before = (sweep.launches, ragged.plain_calls["ragged"])
     res = al.align("ACGTA", db, mode="end", algorithm="ov")
     assert sweep.launches == before[0] + 1
-    assert ragged.plain_calls == before[1]
+    assert ragged.plain_calls["ragged"] == before[1]
     S = m.astype(np.int32)
     enc = lambda s: np.frombuffer(db.alphabet.encode(s), np.uint8)  # noqa
     for r, t in zip(res, targets):
@@ -158,10 +206,11 @@ def test_long_query_takes_the_sweep():
     db = pt.Database(targets)
     assert ragged.fine_qpad(4100) == 4608
     assert ragged.supports_fine(4100, "sw", True)
-    before = (sweep.launches, ragged.plain_calls, ragged_long.plain_calls)
+    before = (sweep.launches, ragged.plain_calls["ragged"],
+              ragged_long.plain_calls)
     res = al.align_batch([query, query[:10]], db, mode="end")
     assert sweep.launches == before[0]
-    assert ragged.plain_calls - before[1] == 2
+    assert ragged.plain_calls["ragged"] - before[1] == 2
     assert ragged_long.plain_calls == before[2]
     S = al.scoring_matrix.int_data()
     enc = lambda s: np.frombuffer(db.alphabet.encode(s), np.uint8)  # noqa
