@@ -12,15 +12,21 @@ Phases (the first failure ends the run with a nonzero exit code):
 2. the build: the seven kernels (``pyopal_tpu_torch/csrc/ragged.cu``,
    ``q8.cu``, ``ragged_long.cu``, ``ragged_v1.cu``, ``ragged_strip.cu``,
    ``group.cu``, ``q8_narrow.cu``) compiled with ``nvcc`` for
-   ``sm_90a``, in parallel;
+   ``sm_90a``, in parallel, with each kernel's registers, stack frame
+   and spills as ``ptxas`` reports them; beside them the probe
+   ``tools/dpx_rate.cu``, which then measures the results per SM per
+   clock of the two DPX instructions of K1's and K3's walk, alone and in
+   the walk's sw cell;
 3. each kernel against its plain PyTorch version on the card, every
    output plane in score and end modes: all four algorithms at several
    query tiers, with edge target lengths and a 2500-residue self-hit
    (score > 12000), and calls that a small scratch budget splits into
-   several launches; K1 at the fine tiers 4608/5120/6144; K3 segment by
+   several launches (K1: at a tier of several passes, which needs its
+   pass buffer); K1 at the fine tiers 4608/5120/6144; K3 segment by
    segment (scores, ends, the boundary rows and the trackers it hands
-   on) at 32- and 64-row segments, and at 2048 rows for a 6,500-residue
-   query against two 4,000-residue slices of itself; K6 (the grouped
+   on) at 32- and 64-row segments, and at 2048 rows (8 passes of the
+   walk) for a 6,500-residue query against two 4,000-residue slices of
+   itself; K6 (the grouped
    kernel) at queries of 13, 256 and 1,000 residues with gaps 3/1, 1/3
    and 0/0 on every lane, padding lanes included; K4 and K5 (no
    ``safe_pad``) at every algorithm, both modes where the kernel has
@@ -64,6 +70,12 @@ Phases (the first failure ends the run with a nonzero exit code):
    its plain version on a 1,000-target slice); K7 on the main path's 8
    q8 groups, one query a 256-residue stretch of a target, its scores
    min(K2's, 255) and its flagged lanes counted;
+   then K1 and K3 against their plain versions at full width where the
+   wavefront walk changes hands: query lengths on either side of a
+   thread's 16 rows and of a pass (64, 128, 256 rows), through several
+   passes (K1 up to 515 rows, K3 a 2,563-row query in two segments), on
+   the main database and on a tie-heavy database of 12,071
+   repeated-motif sequences at its lengths, searched with motif queries;
 6. timings with CUDA events after a warm-up, each kernel held against
    its plain version at the main path's shapes (K3: one 2048-row
    segment of the 35,000-residue query; K6: the sharded path's 40
@@ -71,7 +83,9 @@ Phases (the first failure ends the run with a nonzero exit code):
    queued before the first runs, and the whole database stacked as one
    group; K4, K5 and K7 at phase 5d's shapes, also against their plain
    versions on a 1,000-target slice), the bound of each kernel over the
-   cells its function needs (K5's walked pad rows reported apart),
+   cells its function needs (K5's walked pad rows reported apart; K1
+   and K3 at their six DPX-fused instructions a cell, their plain int32
+   bound beside it),
    end-to-end throughput, long-query and sharded call times, and each
    kernel's launches in one ``align_arrays`` and one ``align`` call,
    counted;
@@ -93,17 +107,25 @@ import time
 import numpy as np
 
 GO, GE = 3, 1
-#: int32 operations per DP cell of sw score mode, counted from the
-#: recurrence at its least: G = H - go (1 subtraction, shared by the next
-#: column's E and the next row's F), E = max(G, E - ge) (2), F = max(G,
-#: F - ge) (2), diagonal max(H + s, E) (2), clamp at 0 (1), H = max with
-#: F (1), running best (1).  Hopper's fused add-max (DPX) instructions
-#: could cut this further; their rate is not in the card's published
-#: peaks, so the bound counts plain int32 operations.
+#: int32 operations per DP cell of sw score mode in plain int32, counted
+#: from the recurrence at its least: G = H - go (1 subtraction, shared by
+#: the next column's E and the next row's F), E = max(G, E - ge) (2), F =
+#: max(G, F - ge) (2), diagonal max(H + s, E) (2), clamp at 0 (1), H = max
+#: with F (1), running best (1): the bound of the one-thread walk
+#: (``csrc/dp.cuh``: K2, K4-K7), and ``int32_bound_ms`` of every kernel
 OPS_PER_CELL_SW_SCORE = 10
+#: instructions per cell of the wavefront walk (``csrc/wave.cuh``: K1,
+#: K3) with Hopper's DPX add-max: E, F and the diagonal one add-max each,
+#: H = max(H, F, 0), G = H - go and the running best; its bound counts
+#: them at the highest of the int32 rate and the rates measured by
+#: ``tools/dpx_rate.cu`` in this run (each DPX instruction alone, and
+#: the cell's six together)
+OPS_PER_CELL_WAVE = 6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT32_LANES_PER_SM = 64
 N_SMS = 132
+DPX_PROBE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tools", "dpx_rate.cu")
 
 
 def emit(obj):
@@ -179,6 +201,74 @@ def rank_main(argv):
     return 0
 
 
+def ptxas_summary(log):
+    """Registers per kernel function and the largest stack frame and
+    spill stores/loads (bytes) that ``nvcc -Xptxas -v`` reported."""
+    import re
+
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    worst = {k: 0 for k in ("stack", "spill_stores", "spill_loads")}
+    for m in re.finditer(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                         r"stores, (\d+) bytes spill loads", log):
+        for k, v in zip(worst, m.groups()):
+            worst[k] = max(worst[k], int(v))
+    return {"registers": regs, **worst}
+
+
+def start_dpx_probe(build_dir, nvcc, flags):
+    """Start ``nvcc`` for ``tools/dpx_rate.cu``; returns (process,
+    library)."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    lib = build_dir / "dpx_rate.so"
+    proc = subprocess.Popen([nvcc, *flags, "-o", str(lib), DPX_PROBE],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, lib
+
+
+def dpx_rates(lib, n_sms):
+    """Results per SM per clock of each DPX instruction of the wavefront
+    walk alone and of its sw cell's six instructions together
+    (``tools/dpx_rate.cu``): two 1024-thread blocks per SM, each SM's
+    results over the span of its blocks' clocks, the highest over the
+    SMs."""
+    import ctypes
+
+    import torch
+
+    fn = ctypes.CDLL(str(lib)).pyopal_dpx_rate_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks, threads, iters = 2 * n_sms, 1024, 4096
+    dev = torch.device("cuda")
+    # -ge, go, a start, E and F's start, eight profile scores
+    inp = torch.tensor([-1, 3, 0, -100, 5, -2, 1, 3, -1, 4, 0, 2],
+                       dtype=torch.int32, device=dev)
+    out = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
+    clocks = torch.empty((blocks, 3), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rates = {}
+    for mode, name in enumerate(("viaddmax_s32", "vimax_s32_relu",
+                                 "sw_cell")):
+        # results a thread makes per step: chains x instructions
+        per_step = 4 * OPS_PER_CELL_WAVE if name == "sw_cell" else 8
+        for _ in range(2):  # the first launch warms the card up
+            err = fn(inp.data_ptr(), out.data_ptr(), clocks.data_ptr(), mode,
+                     blocks, iters, stream)
+            if err:
+                fail(f"the DPX probe did not launch: error {err}")
+        c = clocks.cpu().numpy()
+        per_sm = []
+        for sm in np.unique(c[:, 0]):
+            mine = c[c[:, 0] == sm]
+            span = int(mine[:, 2].max() - mine[:, 1].min())
+            per_sm.append(
+                len(mine) * threads * iters * per_step / span)
+        rates[name] = max(per_sm)
+    return rates
+
+
 def smi(query):
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -220,15 +310,28 @@ def main():
 
     # --- 2. the build ------------------------------------------------------
     t0 = time.perf_counter()
-    secs = _cuda.build_all()
+    probe, probe_lib = start_dpx_probe(_cuda.BUILD_DIR, _cuda._nvcc(),
+                                       _cuda.NVCC_FLAGS)
+    try:
+        secs = _cuda.build_all()
+    finally:
+        probe_log = probe.communicate()[0]
+    if probe.returncode != 0:
+        fail(f"nvcc failed for tools/dpx_rate.cu:\n{probe_log}")
     emit({
         "phase": "build", "nvcc_flags": _cuda.NVCC_FLAGS,
         "seconds_per_kernel": secs,
         "seconds": time.perf_counter() - t0,
         "libraries": sorted(p.name for p in _cuda.BUILD_DIR.glob("*.so")),
-        "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln]
-                  for k, v in _cuda.build_logs.items()},
+        "ptxas": {k: ptxas_summary(v) for k, v in _cuda.build_logs.items()},
+        "dpx_rate_ptxas": ptxas_summary(probe_log),
     })
+    # the rate at which the wavefront walk's bound counts its instructions
+    dpx = dpx_rates(probe_lib, N_SMS)
+    wave_lanes = max(INT32_LANES_PER_SM, *dpx.values())
+    emit({"phase": "dpx_rate", "results_per_sm_clock": dpx,
+          "int32_lanes_per_sm": INT32_LANES_PER_SM,
+          "wave_bound_lanes_per_sm": wave_lanes, **card})
 
     S = pt.ScoringMatrix.from_name("BLOSUM50").int_data()
     algos = ("sw", "nw", "hw", "ov")
@@ -322,10 +425,12 @@ def main():
                         ragged.search_flat_reference, args,
                         f"{label} {algo} ends={ends}")
                 n_checked += 1
-        if label == "tier256":
+        if label == "tier1024":  # several passes: K1's pass buffer
             split_cases.append((
                 "ragged", ragged.search_flat, ragged.search_flat_reference,
-                args, 8 * profs.shape[1], fp.lengths.size))
+                args, 8 * ragged.wave_buffer_rows(
+                    profs.shape[1], fp.flat_targets.shape[0], fp.n_blocks),
+                fp.lengths.size))
     # the 2500-residue self-hit at the 4096 tier
     profs = torch.from_numpy(ragged.make_profiles_host([big], S)).to(dev)
     qlens = torch.tensor([len(big)], dtype=torch.int32, device=dev)
@@ -471,13 +576,8 @@ def main():
             split_launches[f"{name} by {how}"] = (
                 launch_counts()[name] - before)
             n_checked += 1
-    # K3 with a budget of 64 rows x 128 lanes: one launch per 128 lanes
-    # in each of three 64-row segments
-    ragged.SCRATCH_BYTES = 8 * 64 * 128
-    q = rng.integers(0, 20, 192).astype(np.uint8)
-    split_launches["ragged_long by lanes"], _ = compare_segments(
-        q, fp128, "sw", True, 64, "split by lanes")
-    n_checked += 3
+    # (K3 keeps no scratch: one launch per segment whatever the budget;
+    # its passes are held below, at 2048-row segments)
     ragged.SCRATCH_BYTES = budget
     if min(split_launches.values()) < 2:
         fail(f"a small scratch budget did not split the call: "
@@ -1062,6 +1162,75 @@ def main():
           "k7_lanes": int(k7[0].numel()),
           "equal": True, "seconds": time.perf_counter() - t0, **card})
 
+    # --- 5e. K1 and K3 at the walk's pass boundaries, full width -------------
+    # query lengths on either side of a thread's 16 rows and of a pass
+    # (64, 128 and 256 rows at G = 4, 8 and 16), through several passes,
+    # against the main database; and a tie-heavy database of 12,071
+    # repeated-motif sequences at the main database's lengths searched
+    # with motif queries, where equal maxima fall in different threads,
+    # passes and columns
+    t0 = time.perf_counter()
+    fp_full = packing.pack_database_slice_flat(db, 0, n_t)
+    mrng = np.random.default_rng(12)
+    motif = np.frombuffer(db.alphabet.encode("WCHKMY"), np.uint8)
+    tie_t = []
+    for L in lengths_all:
+        t_ = np.resize(np.roll(motif, int(mrng.integers(0, 6))), int(L))
+        hit = mrng.random(int(L)) < 0.03
+        t_[hit] = mrng.integers(0, 20, int(hit.sum()))
+        tie_t.append(t_.astype(np.uint8))
+    fp_tie = packing.pack_sequences_flat(tie_t)
+
+    def edge_query(n, stretch=True):
+        q = mrng.integers(0, 20, n).astype(np.uint8)
+        if stretch:  # a high-scoring stretch of a database sequence
+            src = db.get_encoded(int(np.argmax(lengths_all >= 200)))
+            q[3:63] = src[100:160]
+        return q
+
+    def tie_query(n):
+        return np.resize(motif, n).astype(np.uint8)
+
+    modes = (("sw", False), ("sw", True), ("nw", True), ("hw", True),
+             ("ov", True))
+    edge_cases = {"K1": {}, "K3": {}}
+    for label, fpk, qs in (
+        ("tier 64 (G 4): 16, 17, 63, 64", fp_full,
+         [edge_query(16, False), edge_query(17, False), edge_query(63),
+          edge_query(64)]),
+        ("tier 128 (G 8): 65, 127, 128", fp_full,
+         [edge_query(65), edge_query(127), edge_query(128)]),
+        ("tier 1024 (G 16): 255, 256, 257, 515", fp_full,
+         [edge_query(n) for n in (255, 256, 257, 515)]),
+        ("tie-heavy 259, 515", fp_tie, [tie_query(259), tie_query(515)]),
+    ):
+        profs = torch.from_numpy(ragged.make_profiles_host(qs, S)).to(dev)
+        qlens = torch.tensor([len(q) for q in qs], dtype=torch.int32,
+                             device=dev)
+        for algo, ends in modes:
+            before = ragged.launches["ragged"]
+            compare("ragged", ragged.search_flat,
+                    ragged.search_flat_reference,
+                    (profs, qlens, *dev_flat(fpk), GO, GE, algo, ends,
+                     fpk.chunk, True), f"{label} {algo} ends={ends}")
+            if ragged.launches["ragged"] != before + 1:
+                fail(f"K1 {label}: not one launch")
+            edge_cases["K1"][f"{label} {algo} ends={ends}"] = 1
+    # K3: 2048 + 515 rows (8 passes, then 3 ending inside a thread)
+    for label, fpk, q, ms_ in (
+        ("2563 rows", fp_full, edge_query(2563), modes),
+        ("tie-heavy 2563 rows", fp_tie, tie_query(2563),
+         (("sw", True), ("ov", True))),
+    ):
+        for algo, ends in ms_:
+            n, _ = compare_segments(q, fpk, algo, ends, ragged_long.QSEG,
+                                    label)
+            if n != 2:
+                fail(f"K3 {label}: {n} launches, want 2")
+            edge_cases["K3"][f"{label} {algo} ends={ends}"] = n
+    emit({"phase": "wave_edges", "cases": edge_cases, "equal": True,
+          "targets": n_t, "seconds": time.perf_counter() - t0, **card})
+
     # --- 6. timings and kernels against plain versions at main shapes ----------
     enc = enc_q
     plan = engine.plan_tier_launches(enc, safe_pad=True)
@@ -1102,12 +1271,20 @@ def main():
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / n
 
-    def bound(cells, n_bytes):
-        ops_ms = (OPS_PER_CELL_SW_SCORE * cells
-                  / (N_SMS * INT32_LANES_PER_SM * max_sm_mhz * 1e6) * 1e3)
+    def bound(cells, n_bytes, wave=False):
+        """The least time of ``cells`` DP cells and ``n_bytes`` moved:
+        the one-thread walk's plain int32 operations, or (``wave``) the
+        wavefront walk's DPX-fused instructions, with its plain int32
+        bound beside it as ``int32_bound_ms``."""
+        ops, lanes = ((OPS_PER_CELL_WAVE, wave_lanes) if wave else
+                      (OPS_PER_CELL_SW_SCORE, INT32_LANES_PER_SM))
+        ops_ms = ops * cells / (N_SMS * lanes * max_sm_mhz * 1e6) * 1e3
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        return {"bound_ms": max(ops_ms, bytes_ms),
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        out = {"ops": ops * cells, "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        if wave:
+            out["int32_bound_ms"] = bound(cells, n_bytes)["bound_ms"]
+        return out
 
     results = {}
     for key, (kfn, pfn, base, fpk, query_rows) in shapes.items():
@@ -1131,10 +1308,12 @@ def main():
         results[key] = {
             "ms": ms, "plain_ms": plain_ms, "max_abs_err": max(errs),
             "cells": cells, "gcups": cells / (ms * 1e-3) / 1e9,
-            "int_ops": OPS_PER_CELL_SW_SCORE * cells,
             "bytes": in_bytes + out_bytes,
-            **bound(cells, in_bytes + out_bytes),
+            **bound(cells, in_bytes + out_bytes, wave=key != "q8"),
         }
+        if key != "q8":  # K1's walk: threads per target, rows per thread
+            results[key]["wave"] = {"G": ragged.wave_group(base[0].shape[1]),
+                                    "R": ragged.WAVE_R}
         emit({"phase": "kernel_timing", "kernel": key, "mode": "sw score",
               **results[key], **card})
 
@@ -1186,7 +1365,6 @@ def main():
             "ms": ms, "plain_ms": plain_seconds[key] * 1e3,
             "max_abs_err": max(errs), "cells": cells,
             "gcups": cells / (ms * 1e-3) / 1e9,
-            "int_ops": OPS_PER_CELL_SW_SCORE * cells,
             "bytes": in_bytes + out_bytes,
             **bound(cells, in_bytes + out_bytes),
         }
@@ -1228,9 +1406,10 @@ def main():
         "ms": ms, "plain_ms": plain_seconds["ragged_long"] * 1e3,
         "max_abs_err": max(errs + k3_errs), "cells": cells,
         "gcups": cells / (ms * 1e-3) / 1e9,
-        "int_ops": OPS_PER_CELL_SW_SCORE * cells, "bytes": n_bytes,
-        **bound(cells, n_bytes),
-        "per_call_bound_ms": bound(35000 * residues, 18 * n_bytes)["bound_ms"],
+        "bytes": n_bytes, **bound(cells, n_bytes, wave=True),
+        "per_call_bound_ms": bound(35000 * residues, 18 * n_bytes,
+                                   wave=True)["bound_ms"],
+        "wave": {"G": ragged.wave_group(qseg), "R": ragged.WAVE_R},
     }
     emit({"phase": "kernel_timing", "kernel": "ragged_long",
           "mode": "sw score, one 2048-row segment", **results["ragged_long"],
@@ -1303,8 +1482,7 @@ def main():
         "ms": path_ms, "plain_ms": k6_path_plain_s * 1e3,
         "max_abs_err": max(errs + k6_path_errs), "cells": cells,
         "gcups": cells / (path_ms * 1e-3) / 1e9,
-        "int_ops": OPS_PER_CELL_SW_SCORE * cells, "bytes": path_bytes,
-        **path_bound,
+        "bytes": path_bytes, **path_bound,
         "shape": f"one {len(gq)}-aa query, sw end mode, the sharded path's "
                  f"{len(k6_path_args)} launches ({path_lanes} lanes); ms, "
                  "plain_ms and bound_ms are per query over those launches",
@@ -1419,7 +1597,8 @@ def main():
             "bound_by": r["bound_by"], "library_ms": None,
             "checked_against_plain": True,
             **{k: v for k, v in r.items()
-               if k == "shape" or k.startswith("stacked_")},
+               if k in ("shape", "wave", "int32_bound_ms")
+               or k.startswith("stacked_")},
         })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -1,0 +1,403 @@
+// The wavefront walk of K1 (ragged.cu) and K3 (ragged_long.cu): a group
+// of G threads per (query, target) with the query rows in registers.
+//
+// Why: one thread per target (dp.cuh's dp_walk) gives a single-query
+// launch ~12K threads for a 12,071-sequence database, under a tenth of
+// the H100's thread slots, and each thread walks the previous column's
+// H/E through a [row][lane] scratch in device memory (16 bytes a cell,
+// 200-500 MB at 2048-5,120 rows).  The walk was latency-bound on that
+// serial chain.  Here:
+//
+// - A group of G threads (a power of two, 2..16, lanes of one warp)
+//   walks one (query, target).  Thread t owns R = WAVE_R consecutive
+//   query rows; one pass covers G * R rows, and a longer walk takes
+//   several passes, in order.
+// - Within a pass the group walks the target's columns as an
+//   anti-diagonal wavefront: at step s thread t works on column s - t.
+//   Thread t hands G = H - go and F of its last row at that column to
+//   thread t + 1 with __shfl_up_sync, with the column's target symbol;
+//   thread t + 1 keeps the value of the step before as its diagonal.
+//   Thread 0 takes the row above the pass: the closed-form row 0, or a
+//   buffer of H and F at every column laid out like the flat targets.
+// - Each thread keeps its R rows' G = H - go of the previous column and
+//   their E in registers (two arrays of G that swap roles every step,
+//   so a step moves no registers).  No per-cell state goes to device
+//   memory.
+// - Between passes the last thread writes H and F of the pass's last
+//   row at every column to that buffer (column j at step j + G - 1), and
+//   the next pass's thread 0 reads it (column j at step j): K3 updates
+//   its hb_out/fb_out in place this way; K1 keeps a buffer of its own,
+//   and needs none when the query fits one pass.
+// - The pass's G * R profile rows are staged in shared memory once per
+//   block (all groups of a block share the query) as [symbol][row] with
+//   go added, interleaved so that a thread reads its R entries for one
+//   symbol as R / 4 int4 loads, neighbouring threads on neighbouring
+//   16-byte words (32 KB at G * R = 256).
+// - Target symbols: the group loads a tile of G columns (one byte per
+//   thread, the next tile G steps ahead of use); thread 0 takes column
+//   s from the tile with a shuffle and passes it down the wavefront.
+// - Arithmetic: Hopper's DPX add-max and max-with-0 (__viaddmax_s32,
+//   __vimax_s32_relu), int32 throughout, NEG = -2^30 as in dp.cuh.  A
+//   cell is E = max(E - ge, G_left), F = max(F - ge, G_up), H =
+//   max(G_diag + (s + go), E), H = max(H, F[, 0]), G = H - go, and sw's
+//   running best: six instructions.
+//
+// Trackers keep dp.cuh's rule: max score, then the lowest target column,
+// then the lowest query row.  Each thread tracks its own rows over its
+// columns (sw: a running max per cell, and on a new maximum the first of
+// its rows that holds it); a pass's tracker joins the thread's by the
+// rule, the G threads' trackers join with shuffles by the rule, and the
+// walk's with the incoming one (the closed-form start, or K3's previous
+// launch) by the rule, which takes an equal score at a smaller column.
+// hw/ov read the query's last row, and nw its terminal cell, only in the
+// thread and pass that hold row Q - 1; ov's last column joins by (score
+// desc, row asc) and still loses ties to the last row (dp_finish).  Rows
+// past the walk are neither walked (threads wholly past it skip the
+// cell work) nor tracked (the pass that holds the walk's last row masks
+// them when it ends inside a thread).
+#pragma once
+
+#include <climits>
+
+#include "dp.cuh"
+
+namespace pyopal {
+
+constexpr int WAVE_R = 16;            // query rows per thread
+constexpr int WAVE_MAX_G = 16;        // threads per group, at most
+constexpr int WAVE_THREADS = 256;     // threads per CUDA block
+constexpr int WAVE_PAD = -4000000;    // profile rows past the query
+constexpr unsigned WAVE_FULL = 0xffffffffu;
+// shared memory of one block: a pass's profile, [symbol][k][thread] int4
+constexpr int WAVE_SMEM_INT4 = ALPHA * WAVE_R * WAVE_MAX_G / 4;
+
+// max(a + b, c) and max(a, b, 0): one DPX instruction each on sm_90
+__device__ __forceinline__ int wave_addmax(int a, int b, int c) {
+  return __viaddmax_s32(a, b, c);
+}
+__device__ __forceinline__ int wave_max_relu(int a, int b) {
+  return __vimax_s32_relu(a, b);
+}
+
+// (score desc, column asc, row asc): whether a comes before b
+__device__ __forceinline__ bool wave_first(int as, int aj, int ai, int bs,
+                                           int bj, int bi) {
+  return as > bs || (as == bs && (aj < bj || (aj == bj && ai < bi)));
+}
+
+// Stages profile rows [base, base + G * R) of the walk (rows past
+// prof_rows score WAVE_PAD) with go added, for every symbol.
+__device__ __forceinline__ void wave_stage(int4* sp,
+                                           const int* __restrict__ prof,
+                                           int prof_rows, int base, int G,
+                                           int go) {
+  constexpr int R = WAVE_R;
+  int* s = reinterpret_cast<int*>(sp);
+  const int n = G * R * ALPHA;
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int row = idx / ALPHA;  // within the pass
+    const int sym = idx - row * ALPHA;
+    const int v = base + row < prof_rows
+                      ? __ldg(prof + (size_t)(base + row) * ALPHA + sym)
+                      : WAVE_PAD;
+    const int t = row / R, rr = row - t * R;
+    s[((sym * (R / 4) + (rr >> 2)) * G + t) * 4 + (rr & 3)] = v + go;
+  }
+}
+
+// One walk's state in one thread (everything but the row arrays).
+struct WaveThread {
+  const int4* sp;                 // the pass's staged profile
+  const uint8_t* __restrict__ tgt;  // this lane's column 0
+  const int* bh;                  // buffer above the pass (H, F)
+  const int* bf;
+  int* wh;                        // buffer written by this pass
+  int* wf;
+  int stride, len, G, t, go, ge;
+  int q0, nv, rl;                 // first global row, rows walked, last row
+  bool top, owner, write_rows, track_last;
+  int gdiag, out_g, out_f, out_sym;
+  int ts_cur, ts_next, th_cur, th_next, tf_cur, tf_next;  // column tiles
+  int pb, pbi, pbj;               // sw: this pass's tracker
+  int lb, lbj, cap;               // hw/ov last row, nw terminal (owner)
+  int oc, oci;                    // ov last column
+
+  __device__ __forceinline__ void load_tiles(int col) {
+    const bool in = col < len;
+    ts_next = in ? tgt[(size_t)col * stride] : 0;
+    if (!top) {
+      th_next = in ? bh[(size_t)col * stride] : 0;
+      tf_next = in ? bf[(size_t)col * stride] : 0;
+    }
+  }
+};
+
+// Step s of a pass: receive the row above, walk column s - t.
+template <int ALG, bool ENDS, bool MASK>
+__device__ __forceinline__ void wave_step(WaveThread& w, int s,
+                                          const int (&Gi)[WAVE_R],
+                                          int (&Go)[WAVE_R],
+                                          int (&E)[WAVE_R]) {
+  constexpr int R = WAVE_R;
+  constexpr bool kPenRow = ALG == NW;
+  const int G = w.G;
+  const int src = s & (G - 1);
+  if (src == 0 && s > 0) {
+    w.ts_cur = w.ts_next;
+    w.th_cur = w.th_next;
+    w.tf_cur = w.tf_next;
+    w.load_tiles(s + G + w.t);
+  }
+  const int sym0 = __shfl_sync(WAVE_FULL, w.ts_cur, src, G);
+  int gtop, ftop;
+  if (w.top) {
+    gtop = (kPenRow ? -(w.go + s * w.ge) : 0) - w.go;
+    ftop = NEG;
+  } else {
+    gtop = __shfl_sync(WAVE_FULL, w.th_cur, src, G) - w.go;
+    ftop = __shfl_sync(WAVE_FULL, w.tf_cur, src, G);
+  }
+  int gup = __shfl_up_sync(WAVE_FULL, w.out_g, 1, G);
+  int f = __shfl_up_sync(WAVE_FULL, w.out_f, 1, G);
+  int sym = __shfl_up_sync(WAVE_FULL, w.out_sym, 1, G);
+  if (w.t == 0) {
+    gup = gtop;
+    f = ftop;
+    sym = sym0;
+  }
+  w.out_sym = sym;
+  const int j = s - w.t;
+  if (w.nv <= 0 || j < 0 || j >= w.len) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) Go[r] = Gi[r];  // idle: the column stays
+    return;
+  }
+
+  const int4* ps = w.sp + sym * (R / 4) * G + w.t;
+  const int go = w.go, nge = -w.ge;
+  int gd = w.gdiag;
+  w.gdiag = gup;
+  const int best0 = w.pb;
+  int fq = 0;
+#pragma unroll
+  for (int k = 0; k < R / 4; ++k) {
+    const int4 p4 = ps[k * G];
+    const int pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = 4 * k + c;
+      const int e = wave_addmax(E[r], nge, Gi[r]);
+      E[r] = e;
+      f = wave_addmax(f, nge, gup);
+      int h = wave_addmax(gd, pv[c], e);
+      h = ALG == SW ? wave_max_relu(h, f) : max(h, f);
+      gd = Gi[r];
+      Go[r] = h - go;
+      gup = Go[r];
+      if (ALG == SW && (!MASK || r < w.nv)) w.pb = max(w.pb, h);
+      if (MASK && r == w.rl) fq = f;
+    }
+  }
+  w.out_g = gup;
+  w.out_f = f;
+
+  if (ALG == SW && ENDS && w.pb > best0) {
+    // a new maximum in this column: its first row among this thread's
+    int ri = 0;
+#pragma unroll
+    for (int r = R - 1; r >= 0; --r) {
+      if ((!MASK || r < w.nv) && Go[r] == w.pb - go) ri = r;
+    }
+    w.pbi = w.q0 + ri;
+    w.pbj = j;
+  }
+  if (ALG == OV && j == w.len - 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int h = Go[r] + go;
+      if ((!MASK || r < w.nv) && h > w.oc) {
+        w.oc = h;
+        w.oci = w.q0 + r;
+      }
+    }
+  }
+  if (w.owner) {
+    // H and F of the pass's (the walk's) last row held by this thread
+    int gq = Go[R - 1];
+    if (MASK) {
+#pragma unroll
+      for (int r = 0; r < R - 1; ++r) gq = r == w.rl ? Go[r] : gq;
+    } else {
+      fq = f;
+    }
+    const int hq = gq + go;
+    if (w.track_last) {
+      if ((ALG == HW || ALG == OV) && hq > w.lb) {
+        w.lb = hq;
+        w.lbj = j;
+      }
+      if (ALG == NW && j == w.len - 1) w.cap = hq;
+    }
+    if (w.write_rows) {
+      w.wh[(size_t)j * w.stride] = hq;
+      w.wf[(size_t)j * w.stride] = fq;
+    }
+  }
+}
+
+template <int ALG, bool ENDS, bool MASK>
+__device__ __forceinline__ void wave_pass(WaveThread& w, int nsteps,
+                                          int (&GA)[WAVE_R],
+                                          int (&GB)[WAVE_R],
+                                          int (&E)[WAVE_R]) {
+  for (int s = 0; s < nsteps; s += 2) {  // nsteps is even
+    wave_step<ALG, ENDS, MASK>(w, s, GA, GB, E);
+    wave_step<ALG, ENDS, MASK>(w, s + 1, GB, GA, E);
+  }
+}
+
+// Walks rows [row0, row0 + rows) of a query of Q rows against one target
+// (len columns; column j at tgt + j * stride), in passes of G * WAVE_R
+// rows, and joins the trackers into trk (the incoming tracker on entry).
+// Every thread of the block calls it (it synchronises the block); a
+// thread without a target passes len = 0.
+//
+// prof: profile row row0 of the query; prof_rows rows from there.
+// hb_in/fb_in: H and F of row row0 - 1 at every column (read when
+//   row0 > 0), laid out like tgt.
+// pb_h/pb_f: the buffer between passes, laid out like tgt and updated in
+//   place (column j read at step j, written at step j + G - 1; no
+//   __restrict__, so no load moves past a store).  With SEG_OUT (K3) it
+//   also receives H and F of the walk's last row; without it (K1) the
+//   last pass writes nothing.
+// All G threads of a group return the same tracker.
+template <int ALG, bool ENDS, bool SEG_OUT>
+__device__ __forceinline__ void wave_walk(
+    int4* sp, const int* __restrict__ prof, int prof_rows, int row0,
+    int rows, int Q, const uint8_t* __restrict__ tgt, int stride, int len,
+    const int* hb_in, const int* fb_in, int* pb_h, int* pb_f, int G, int go,
+    int ge, Track& trk) {
+  constexpr int R = WAVE_R;
+  constexpr bool kPenCol = ALG == NW || ALG == HW;
+  const int t = threadIdx.x & (G - 1);
+  const int GR = G * R;
+  const int n_pass = rows > 0 ? (rows + GR - 1) / GR : 0;
+  const int last_base = n_pass > 0 ? (n_pass - 1) * GR : 0;
+  const int own_last = rows > 0 ? (rows - 1 - last_base) / R : 0;
+  const bool has_last = rows > 0 && row0 + rows == Q;
+  const int wlen = __reduce_max_sync(WAVE_FULL, len);
+  int nsteps = wlen > 0 ? wlen + G - 1 : 0;
+  nsteps += nsteps & 1;
+
+  WaveThread w;
+  w.sp = sp;
+  w.tgt = tgt;
+  w.stride = stride;
+  w.len = len;
+  w.G = G;
+  w.t = t;
+  w.go = go;
+  w.ge = ge;
+  w.lb = trk.best;
+  w.lbj = trk.bj;
+  w.cap = trk.cap;
+  w.oc = NEG;
+  w.oci = INT_MAX;
+  int sb = 0, sbi = -1, sbj = -1;  // sw: this thread's, over its passes
+
+  int GA[R], GB[R], E[R];
+  for (int p = 0; p < n_pass; ++p) {
+    const int base = p * GR;
+    const bool final_pass = p == n_pass - 1;
+    __syncthreads();  // every group is done with the previous profile
+    wave_stage(sp, prof, prof_rows, base, G, go);
+    __syncthreads();
+    w.q0 = row0 + base + t * R;
+    w.nv = min(max(row0 + rows - w.q0, 0), R);
+    w.rl = final_pass ? (rows - 1 - base) % R : R - 1;
+    w.owner = final_pass ? t == own_last : t == G - 1;
+    w.write_rows = final_pass ? SEG_OUT : true;
+    w.track_last = final_pass && has_last;
+    w.top = base == 0 && row0 == 0;
+    w.bh = base == 0 ? hb_in : pb_h;
+    w.bf = base == 0 ? fb_in : pb_f;
+    w.wh = pb_h;
+    w.wf = pb_f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int q = w.q0 + r;
+      GA[r] = (kPenCol ? -(go + q * ge) : 0) - go;
+      E[r] = NEG;
+    }
+    w.gdiag = (w.q0 == 0 ? 0 : (kPenCol ? -(go + (w.q0 - 1) * ge) : 0)) - go;
+    w.out_g = 0;
+    w.out_f = NEG;
+    w.out_sym = 0;
+    w.pb = ALG == SW && !ENDS ? sb : 0;
+    w.pbi = -1;
+    w.pbj = -1;
+    w.th_next = w.tf_next = 0;
+    w.load_tiles(t);
+    w.ts_cur = w.ts_next;
+    w.th_cur = w.th_next;
+    w.tf_cur = w.tf_next;
+    w.load_tiles(G + t);
+    if (final_pass && rows % R != 0) {
+      wave_pass<ALG, ENDS, true>(w, nsteps, GA, GB, E);
+    } else {
+      wave_pass<ALG, ENDS, false>(w, nsteps, GA, GB, E);
+    }
+    if (ALG == SW) {
+      if (!ENDS) {
+        sb = w.pb;
+      } else if (wave_first(w.pb, w.pbj, w.pbi, sb, sbj, sbi)) {
+        sb = w.pb;
+        sbi = w.pbi;
+        sbj = w.pbj;
+      }
+    }
+    __syncwarp();  // this pass's buffer writes before the next one reads
+  }
+
+  // join the G threads' trackers, then the incoming one
+  if (ALG == SW) {
+    for (int m = 1; m < G; m <<= 1) {
+      const int os = __shfl_xor_sync(WAVE_FULL, sb, m, G);
+      const int oi = __shfl_xor_sync(WAVE_FULL, sbi, m, G);
+      const int oj = __shfl_xor_sync(WAVE_FULL, sbj, m, G);
+      if (ENDS ? wave_first(os, oj, oi, sb, sbj, sbi) : os > sb) {
+        sb = os;
+        sbi = oi;
+        sbj = oj;
+      }
+    }
+    if (!ENDS) {
+      trk.best = max(trk.best, sb);
+    } else if (wave_first(sb, sbj, sbi, trk.best, trk.bj, trk.bi)) {
+      trk.best = sb;
+      trk.bi = sbi;
+      trk.bj = sbj;
+    }
+  }
+  if (ALG == OV) {
+    for (int m = 1; m < G; m <<= 1) {
+      const int oc = __shfl_xor_sync(WAVE_FULL, w.oc, m, G);
+      const int oi = __shfl_xor_sync(WAVE_FULL, w.oci, m, G);
+      if (oc > w.oc || (oc == w.oc && oi < w.oci)) {
+        w.oc = oc;
+        w.oci = oi;
+      }
+    }
+    if (w.oc > trk.cap || (w.oc == trk.cap && w.oci < trk.ci)) {
+      trk.cap = w.oc;
+      trk.ci = w.oci;
+    }
+  }
+  if (ALG == HW || ALG == OV) {
+    trk.best = __shfl_sync(WAVE_FULL, w.lb, own_last, G);
+    trk.bj = __shfl_sync(WAVE_FULL, w.lbj, own_last, G);
+  }
+  if (ALG == NW) trk.cap = __shfl_sync(WAVE_FULL, w.cap, own_last, G);
+}
+
+}  // namespace pyopal

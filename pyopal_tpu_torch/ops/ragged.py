@@ -18,11 +18,13 @@ the reference does (l.1091-1107):
 K4 and K5 walk all ``Q_pad`` profile rows, pad rows included, and K4
 fills the score-mode end planes from untracked positions, as their TPU
 kernels do (`sweep.sweep_all_rows`); K1 stops at the query's length and
-writes -1 planes in score mode.  Each kernel is hand-written CUDA C++;
-its design (one thread per query x target lane, columns outer, rows
-inner) is described in its source.
+writes -1 planes in score mode.  Each kernel is hand-written CUDA C++,
+its design described in its source: K4 and K5 give one thread to each
+query x target lane (``csrc/dp.cuh``); K1 gives each a group of
+`wave_group` threads with 16 query rows each in registers, walking the
+target as a wavefront (``csrc/wave.cuh``, shared with K3).
 
-Three things live here:
+Four things live here:
 
 - `search_flat`, the wrapper: it checks its inputs, launches the routed
   CUDA kernel for CUDA tensors and counts it in `launches`; for CPU
@@ -32,6 +34,9 @@ Three things live here:
   function, routed alike: a column sweep (`pyopal_tpu_torch.ops.sweep`)
   for K1, `search_flat_v1_reference` for K4 and
   `search_flat_strip_reference` for K5.
+- `wave_reference`, K1 as its kernel computes it (`wave_walk_reference`,
+  the walk's CPU emulation, also K3's): for the tests, which hold it
+  against the JAX package at small group sizes; no call path runs it.
 - the host-side profiles and tier helpers shared with the engine,
   including the fine tiers of single long queries (`fine_qpad`,
   `supports_fine`, ``pallas_ragged.py`` l.113-152), which K1 takes in
@@ -46,6 +51,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models import ALGORITHMS
 from . import sweep
 
 ALPHA = 32  # profile columns (MAX_ALPHABET_SIZE)
@@ -68,7 +74,8 @@ STRIP_MIN_QPAD = 512
 LANES = 128
 
 ALGO_CODES = {"sw": 0, "nw": 1, "hw": 2, "ov": 3}
-#: largest H/E scratch (bytes) one kernel launch may use; a call that
+#: largest scratch (bytes) one kernel launch may use: the H/E scratch of
+#: K2 and K4-K7, K1's pass buffer at tiers of several passes; a call that
 #: needs more is split into launches over query and lane ranges
 SCRATCH_BYTES = 2 << 30
 
@@ -255,9 +262,10 @@ def search_flat(
 
     Runs the kernel `flat_route` names: K1 under ``safe_pad``, else K5
     for score-only calls at tiers of `STRIP_MIN_QPAD` rows and more, else
-    K4.  One kernel launch, or several where one launch's scratch would
-    exceed `SCRATCH_BYTES` (`launch_plan`); each adds one to the kernel's
-    count in `launches`.
+    K4.  One kernel launch, or several where one launch's scratch (K1:
+    its pass buffer, at tiers beyond one pass) would exceed
+    `SCRATCH_BYTES` (`launch_plan`); each adds one to the kernel's count
+    in `launches`.
 
     Arguments:
         profs: ``(n_q, Q_pad, 32)`` int32 profiles (`make_profiles_host`)
@@ -313,20 +321,29 @@ def search_flat(
         torch.empty((n_q, n_blocks, lanes), dtype=torch.int32, device=dev)
         for _ in range(3)
     ]
-    # K5's unit per (query, lane) is STRIP scratch rows and the H/F
-    # boundary of the lane's columns (total_rows / n_blocks on average)
-    strip = route == "ragged_strip"
+    # a launch's scratch per (query, lane): K4's H/E rows; K5's strip of
+    # them and the H/F boundary of the lane's columns (total_rows /
+    # n_blocks on average); K1's pass buffer, H and F of the lane's
+    # columns, none when the tier fits one pass of its walk
     rows = flat_targets.shape[0]
-    scr_rows = STRIP if strip else q_pad
-    unit_rows = scr_rows + (-(-rows // max(n_blocks, 1)) if strip else 0)
-    units, n_lanes, chunks = launch_plan(n_q, unit_rows, n_blocks * lanes)
+    wave, strip = route == "ragged", route == "ragged_strip"
+    scr_rows = 0 if wave else STRIP if strip else q_pad
+    cols = (wave_buffer_rows(q_pad, rows, n_blocks) if wave
+            else -(-rows // max(n_blocks, 1)) if strip else 0)
+    if scr_rows + cols:
+        units, n_lanes, chunks = launch_plan(
+            n_q, scr_rows + cols, n_blocks * lanes)
+    else:
+        units, n_lanes, chunks = 0, 0, [(0, n_q, 0, n_blocks * lanes)]
     scratch = torch.empty(
         (units, scr_rows, n_lanes, 2), dtype=torch.int32, device=dev
-    )
-    extra = (
-        torch.empty((units, 2, rows, lanes), dtype=torch.int32, device=dev),
-        rows,
-    ) if strip else ()
+    ) if scr_rows else 0
+    boundary = torch.empty(
+        (units, 2, rows, lanes), dtype=torch.int32, device=dev
+    ) if cols else 0
+    extra = (boundary, rows) if strip else ()
+    if wave:  # the pass buffer in the scratch's place, then the group size
+        scratch, extra = boundary, (rows, wave_group(q_pad))
     for q0, q1, n0, n1 in chunks:  # one stream: launches reuse scratch
         _cuda.launch(
             route,
@@ -423,3 +440,328 @@ def search_flat_strip_reference(
         algorithm, False, chunk,
     )
     return s, torch.full_like(s, -1), torch.full_like(s, -1)
+
+
+# --- K1's and K3's wavefront walk (csrc/wave.cuh) -------------------------
+
+#: query rows per thread of the wavefront walk (``csrc/wave.cuh``: WAVE_R)
+WAVE_R = 16
+#: threads per (query, target) of the walk, at most (WAVE_MAX_G)
+WAVE_MAX_G = 16
+
+
+def wave_group(rows: int, R: int = WAVE_R) -> int:
+    """Threads per (query, target) for walks of ``rows`` query rows: the
+    least power of two, at least 2, whose passes of ``G * R`` rows cover
+    ``min(rows, WAVE_MAX_G * R)``."""
+    g = 2
+    while g < WAVE_MAX_G and g * R < rows:
+        g *= 2
+    return g
+
+
+def wave_buffer_rows(q_pad: int, flat_rows: int, n_blocks: int) -> int:
+    """Buffer rows per (query, lane) that K1 needs at a ``q_pad``-row
+    tier, on average over the flat pack's lanes: 0 when the tier fits one
+    pass of the walk, else the mean target columns of a lane (the buffer
+    holds H and F of a pass's last row at each of them)."""
+    if q_pad <= wave_group(q_pad) * WAVE_R:
+        return 0
+    return -(-flat_rows // max(n_blocks, 1))
+
+
+def _wave_first(a, b):
+    """Where tracker ``a`` (score, column, row) comes before ``b``: score
+    desc, column asc, row asc."""
+    (as_, aj, ai), (bs, bj, bi) = a, b
+    return (as_ > bs) | ((as_ == bs) & ((aj < bj) | ((aj == bj) & (ai < bi))))
+
+
+def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
+                        tgt, lens, hb_in, fb_in, pbuf_h, pbuf_f, go, ge,
+                        algorithm, with_ends, trk, G, R, seg_out):
+    """CPU emulation of ``csrc/wave.cuh``'s `wave_walk` over N walks.
+
+    It mirrors the kernel: passes of ``G * R`` rows; within a pass the
+    anti-diagonal wavefront (step ``s``: thread ``t`` on column ``s - t``)
+    with each thread's ``R`` rows of ``G = H - go`` and ``E``, the row
+    above handed from thread ``t`` to ``t + 1``, thread 0 reading the
+    closed-form row 0 or the buffer above; per-thread trackers (sw's
+    running max and, on a new maximum, the first of the thread's rows
+    that holds it), joined per pass, across threads by xor butterfly and
+    with the incoming tracker by (score desc, column asc, row asc); hw/ov
+    and nw read the last row in the owning thread; rows past the walk are
+    masked.  Vectorized over walks and threads in torch (int64).
+
+    Arguments (N walks, T columns):
+        prof_flat: ``(n_prof * prof_rows * 32,)`` profile entries;
+            ``walk_prof`` (N,) names each walk's profile.
+        row0: global query row of walk row 0 (an int); ``rows`` / ``Q``:
+            ``(N,)`` rows walked and query lengths.
+        tgt: ``(T, N)`` symbols; ``lens``: ``(N,)`` target lengths.
+        hb_in / fb_in: ``(T, N)`` H and F of row ``row0 - 1`` (read when
+            ``row0 > 0``).
+        pbuf_h / pbuf_f: ``(T, N)`` buffers between passes, updated in
+            place; with ``seg_out`` they receive the walk's last row.
+        trk: ``(5, N)`` incoming trackers (best, cap, bi, bj, ci).
+
+    Returns the ``(5, N)`` trackers after the walk.
+    """
+    spec = ALGORITHMS[algorithm]
+    sw, nw, ov = algorithm == "sw", algorithm == "nw", algorithm == "ov"
+    hw_ov = algorithm in ("hw", "ov")
+    pen_row, pen_col = spec.penalize_first_row, spec.penalize_first_col
+    i64 = torch.int64
+    NEG = sweep.NEG
+    BIG = 2**31 - 1
+    T, N = tgt.shape
+    go, ge = int(go), int(ge)
+    rows = rows.to(i64)
+    Q = Q.to(i64)
+    lens = lens.to(i64)
+    tgt = tgt.to(i64)
+    walk_prof = walk_prof.to(i64)
+    prof_flat = torch.cat([prof_flat.to(i64), torch.full((ALPHA,), PAD_SCORE,
+                                                         dtype=i64)])
+    pad_row = prof_flat.shape[0] // ALPHA - 1  # index of the PAD row
+    GR = G * R
+    t_ = torch.arange(G, dtype=i64)[:, None]  # (G, 1)
+    r_ = torch.arange(R, dtype=i64)
+
+    def bnd(q):  # first-column boundary H of query row q >= 0
+        return -(go + q * ge) if pen_col else torch.zeros_like(q)
+
+    n_pass = torch.where(rows > 0, (rows + GR - 1) // GR, 0)
+    last_base = torch.clamp(n_pass - 1, min=0) * GR
+    own_last = torch.where(rows > 0, (rows - 1 - last_base) // R, 0)
+    has_last = (rows > 0) & (row0 + rows == Q)
+    best_in, cap_in, bi_in, bj_in, ci_in = (x.to(i64) for x in trk)
+
+    zero = torch.zeros((G, N), dtype=i64)
+    lb, lbj, cap = (x[None].expand(G, N).clone()
+                    for x in (best_in, bj_in, cap_in))
+    oc, oci = zero + NEG, zero + BIG
+    sb, sbi, sbj = zero.clone(), zero - 1, zero - 1
+    nsteps = int(lens.max()) + G - 1 if N and int(lens.max()) > 0 else 0
+    for p in range(int(n_pass.max()) if N else 0):
+        base = p * GR
+        part = p < n_pass  # (N,) walks with this pass
+        final = part & (p == n_pass - 1)
+        q0 = row0 + base + t_ * R + zero  # (G, N) first global row
+        nv = torch.clamp(row0 + rows - q0, 0, R) * part
+        rl = torch.where(final, (rows - 1 - base) % R, R - 1)
+        owner_t = torch.where(final, (rows - 1 - base) // R, G - 1)
+        owner = t_ == owner_t  # (G, N)
+        write_rows = ~final if not seg_out else part
+        track_last = final & has_last
+        top = base == 0 and row0 == 0
+        bh, bf = (hb_in, fb_in) if base == 0 else (pbuf_h, pbuf_f)
+        qr = q0[:, None, :] + r_[None, :, None]  # (G, R, N) global rows
+        Gv = bnd(qr) - go
+        E = torch.full((G, R, N), NEG, dtype=i64)
+        gdiag = torch.where(q0 == 0, 0, bnd(q0 - 1)) - go
+        out_g, out_f, out_sym = zero.clone(), zero + NEG, zero.clone()
+        pb = sb.clone() if sw and not with_ends else zero.clone()
+        pbi, pbj = zero - 1, zero - 1
+        # profile row of each (thread, row, walk): walk-relative rows
+        # past the profile score PAD_SCORE, as the kernel stages them
+        prow = qr - row0
+        rowi = torch.where(prow < prof_rows, walk_prof * prof_rows + prow,
+                           pad_row)
+        for s in range(nsteps):
+            if top:
+                gtop = torch.full((N,), (-(go + s * ge) if pen_row else 0)
+                                  - go, dtype=i64)
+                ftop = torch.full((N,), NEG, dtype=i64)
+            elif s < T:
+                gtop, ftop = bh[s].to(i64) - go, bf[s].to(i64)
+            else:
+                gtop, ftop = torch.full((N,), -go, dtype=i64), zero[0]
+            sym0 = tgt[s] if s < T else zero[0]
+            recv_g = torch.cat([gtop[None], out_g[:-1]])
+            gup = recv_g
+            f = torch.cat([ftop[None], out_f[:-1]])
+            sym = torch.cat([sym0[None], out_sym[:-1]])
+            out_sym = sym
+            j = s - t_ + zero  # (G, N)
+            act = (nv > 0) & (j >= 0) & (j < lens)
+            if not bool(act.any()):
+                continue
+            pv = prof_flat[rowi * ALPHA + sym[:, None, :]] + go  # (G, R, N)
+            gd = gdiag
+            Gn = torch.empty_like(Gv)
+            best = pb
+            En = torch.maximum(E - ge, Gv)  # E of every row: G of its left
+            Fr = torch.empty_like(Gv)
+            for r in range(R):
+                f = torch.maximum(f - ge, gup)
+                Fr[:, r] = f
+                h = torch.maximum(torch.maximum(gd + pv[:, r], En[:, r]), f)
+                if sw:
+                    h.clamp_(min=0)
+                gd = Gv[:, r]
+                gup = Gn[:, r] = h - go
+            if sw:  # the running max over the thread's rows in the walk
+                hs = torch.where(r_[None, :, None] < nv[:, None], Gn + go,
+                                 sweep.NEG)
+                best = torch.maximum(best, hs.amax(1))
+            fq = Fr.gather(1, rl[None, None].expand(G, 1, N))[:, 0]
+            E = torch.where(act[:, None], En, E)
+            Gn = torch.where(act[:, None], Gn, Gv)
+            new = act & (best > pb) if sw and with_ends else None
+            if new is not None and bool(new.any()):
+                hit = (r_[None, :, None] < nv[:, None]) & (
+                    Gn == (best - go)[:, None])
+                ri = hit.to(torch.uint8).argmax(1)  # the first such row
+                pbi = torch.where(new, q0 + ri, pbi)
+                pbj = torch.where(new, j, pbj)
+            pb = torch.where(act, best, pb)
+            if ov:
+                at_end = act & (j == lens - 1)
+                for r in range(R):
+                    h = Gn[:, r] + go
+                    upd = at_end & (r < nv) & (h > oc)
+                    oc = torch.where(upd, h, oc)
+                    oci = torch.where(upd, q0 + r, oci)
+            gq = Gn.gather(1, rl[None, None].expand(G, 1, N))[:, 0]
+            hq = gq + go
+            own = act & owner
+            if hw_ov:
+                upd = own & track_last & (hq > lb)
+                lb = torch.where(upd, hq, lb)
+                lbj = torch.where(upd, j, lbj)
+            if nw:
+                cap = torch.where(own & track_last & (j == lens - 1), hq,
+                                  cap)
+            wr = own & write_rows
+            if bool(wr.any()):
+                tt, nn = wr.nonzero(as_tuple=True)
+                pbuf_h[j[tt, nn], nn] = hq[tt, nn].to(pbuf_h.dtype)
+                pbuf_f[j[tt, nn], nn] = fq[tt, nn].to(pbuf_f.dtype)
+            out_g = torch.where(act, gup, out_g)
+            out_f = torch.where(act, f, out_f)
+            gdiag = torch.where(act, recv_g, gdiag)
+            Gv = Gn
+        if sw:
+            if not with_ends:
+                sb = torch.where(part, pb, sb)
+            else:
+                take = part & _wave_first((pb, pbj, pbi), (sb, sbj, sbi))
+                sb, sbi, sbj = (torch.where(take, a, b) for a, b in
+                                ((pb, sb), (pbi, sbi), (pbj, sbj)))
+
+    # join the G threads' trackers (xor butterfly), then the incoming one
+    best, bi, bj, ci = best_in, bi_in, bj_in, ci_in
+    m = 1
+    while m < G:
+        x = torch.arange(G) ^ m
+        if sw:
+            o = (sb[x], sbj[x], sbi[x])
+            take = (_wave_first(o, (sb, sbj, sbi)) if with_ends
+                    else o[0] > sb)
+            sb, sbj, sbi = (torch.where(take, a, b) for a, b in
+                            zip(o, (sb, sbj, sbi)))
+        if ov:
+            o = (oc[x], oci[x])
+            take = (o[0] > oc) | ((o[0] == oc) & (o[1] < oci))
+            oc, oci = (torch.where(take, a, b) for a, b in zip(o, (oc, oci)))
+        m *= 2
+    if sw:
+        if not with_ends:
+            best = torch.maximum(best_in, sb[0])
+        else:
+            take = _wave_first((sb[0], sbj[0], sbi[0]), (best_in, bj_in, bi_in))
+            best, bi, bj = (torch.where(take, a, b) for a, b in
+                            ((sb[0], best_in), (sbi[0], bi_in),
+                             (sbj[0], bj_in)))
+    if ov:
+        take = (oc[0] > cap_in) | ((oc[0] == cap_in) & (oci[0] < ci_in))
+        cap = torch.where(take, oc[0], cap_in)
+        ci = torch.where(take, oci[0], ci_in)
+    elif nw:
+        cap = cap.gather(0, own_last[None])[0]
+    else:
+        cap = cap_in
+    if hw_ov:
+        best = lb.gather(0, own_last[None])[0]
+        bj = lbj.gather(0, own_last[None])[0]
+    return torch.stack([best, cap, bi, bj, ci])
+
+
+def wave_finish(trk, Q, lens, algorithm, with_ends, score_planes):
+    """`dp_finish` of ``csrc/dp.cuh`` on ``(5, N)`` trackers: (score,
+    query end, target end), with -1 end planes in score mode unless
+    ``score_planes`` (K3)."""
+    best, cap, bi, bj, ci = trk
+    Q = Q.to(torch.int64)
+    lens = lens.to(torch.int64)
+    if not with_ends:
+        bi = bj = ci = torch.full_like(best, -1)
+    if algorithm == "sw":
+        out = (best, bi, bj)
+    elif algorithm == "nw":
+        out = (cap, Q - 1, lens - 1)
+    elif algorithm == "hw":
+        out = (best, Q - 1, bj)
+    else:  # ov: ties go to the last-row end
+        use_col = cap > best
+        out = (torch.where(use_col, cap, best),
+               torch.where(use_col, ci, Q - 1),
+               torch.where(use_col, lens - 1, bj))
+    if not (with_ends or score_planes):
+        out = (out[0], torch.full_like(best, -1), torch.full_like(best, -1))
+    return tuple(x.to(torch.int32) for x in out)
+
+
+def wave_start(Q, go, ge, algorithm):
+    """`track_start` of ``csrc/dp.cuh``: ``(5, N)`` trackers before the
+    first column of queries of ``Q`` rows."""
+    Q = Q.to(torch.int64)
+    empty = -(int(go) + (Q - 1) * int(ge))
+    neg1 = torch.full_like(Q, -1)
+    best = empty if algorithm == "hw" else torch.zeros_like(Q)
+    cap = empty if algorithm == "nw" else torch.full_like(Q, sweep.NEG)
+    return torch.stack([best, cap, neg1, neg1, neg1])
+
+
+def wave_reference(
+    profs,
+    qlens,
+    flat_targets,
+    lengths,
+    bos,
+    cos,
+    los,
+    go,
+    ge,
+    algorithm,
+    with_ends,
+    chunk=64,
+    G=None,
+    R=WAVE_R,
+):
+    """K1 as its CUDA kernel computes it: `wave_walk_reference` for every
+    (query, target lane), ``G`` threads of ``R`` rows each (``G``: the
+    kernel's `wave_group` of the tier by default).  Same inputs and
+    outputs as `search_flat` under ``safe_pad``; CPU tensors only.  The
+    tests hold it against the JAX package; no call path uses it."""
+    del cos, los
+    n_q, q_pad, _ = profs.shape
+    n_blocks, _, lanes = lengths.shape
+    N = n_blocks * lanes
+    G = wave_group(q_pad, R) if G is None else G
+    lens = lengths.reshape(-1).to(torch.int64)
+    tgt = sweep.columns_from_flat(flat_targets, lengths, bos, chunk)
+    tgt = tgt.to(torch.int64).repeat(1, n_q)  # walk = query * N + lane
+    T = tgt.shape[0]
+    Q = torch.clamp(qlens.to(torch.int64), max=q_pad).repeat_interleave(N)
+    lens = lens.repeat(n_q)
+    walk_prof = torch.arange(n_q).repeat_interleave(N)
+    buf = torch.zeros((T, n_q * N), dtype=torch.int64)
+    trk = wave_walk_reference(
+        profs.reshape(-1), q_pad, walk_prof, 0, Q, Q, tgt, lens, buf, buf,
+        buf.clone(), buf.clone(), go, ge, algorithm, with_ends,
+        wave_start(Q, go, ge, algorithm), G, R, False,
+    )
+    out = wave_finish(trk, Q, lens, algorithm, with_ends, False)
+    return tuple(x.reshape(n_q, n_blocks, lanes) for x in out)

@@ -15,19 +15,21 @@ state lives in device memory:
 
 The reference keeps this state in f32; the port keeps it in int32, which
 is exact.  The kernel is hand-written CUDA C++ in
-``csrc/ragged_long.cu``; its design is described there.
+``csrc/ragged_long.cu``, K1's wavefront walk (``csrc/wave.cuh``) over the
+segment's rows in passes of 256; its design is described there.
 
 As in `pyopal_tpu_torch.ops.ragged`:
 
 - `search_segment`, the wrapper: it checks its inputs, launches the
-  kernel for CUDA tensors and counts `launches` (several per segment
-  where the H/E scratch would exceed ``ragged.SCRATCH_BYTES``); for CPU
-  tensors it runs the plain version and counts `plain_calls`.  A CUDA
-  tensor never falls back.
+  kernel for CUDA tensors and counts `launches` (one per segment: the
+  walk keeps no scratch); for CPU tensors it runs the plain version and
+  counts `plain_calls`.  A CUDA tensor never falls back.
 - `segment_reference`, the plain PyTorch version of one segment: a
   column sweep over the segment's rows with ``torch.cummax`` for F,
   seeded from the carried row above.  It takes and returns the same
   state as the kernel, so the two compare segment by segment.
+- `wave_segment_reference`, the segment as the kernel computes it
+  (``ragged.wave_walk_reference``): for the tests only.
 - `search_flat_long` / `search_flat_long_reference`: every segment of
   one query, through the wrapper or the plain version.
 
@@ -49,9 +51,13 @@ from . import sweep
 from .ragged import (
     ALGO_CODES,
     ALPHA,
+    WAVE_R,
     check_flat,
-    launch_plan,
     make_profiles_host,
+    wave_finish,
+    wave_group,
+    wave_start,
+    wave_walk_reference,
 )
 
 #: query rows per segment (reference ``QSEG``; read at call time, so a
@@ -157,19 +163,18 @@ def search_segment(
         torch.empty((n_blocks, lanes), dtype=torch.int32, device=dev)
         for _ in range(3)
     ]
+    # the walk's passes update hb_out/fb_out in place (no scratch)
     hb_out, fb_out = hb.clone(), fb.clone()
     trk_out = torch.empty_like(trk)
-    _, n_lanes, chunks = launch_plan(1, rows, n_blocks * lanes)
-    scratch = torch.empty((rows, n_lanes, 2), dtype=torch.int32, device=dev)
-    for _, _, n0, n1 in chunks:  # one stream: launches reuse scratch
-        _cuda.launch(
-            "ragged_long",
-            prof, flat_targets, lengths, row_off, hb, fb, hb_out, fb_out,
-            trk, trk_out, *outs, scratch,
-            int(Q), int(seg_off), rows, n_blocks, lanes, n0, n1 - n0,
-            int(go), int(ge), ALGO_CODES[algorithm], int(bool(with_ends)),
-        )
-        launches += 1
+    _cuda.launch(
+        "ragged_long",
+        prof, flat_targets, lengths, row_off, hb, fb, hb_out, fb_out,
+        trk, trk_out, *outs,
+        int(Q), int(seg_off), rows, prof.shape[0], n_blocks, lanes,
+        wave_group(rows), int(go), int(ge), ALGO_CODES[algorithm],
+        int(bool(with_ends)),
+    )
+    launches += 1
     return (*outs, hb_out, fb_out, trk_out)
 
 
@@ -329,6 +334,62 @@ def segment_reference(
     return (
         scores, qe, te, hb_out, fb_out,
         trk_out.reshape(N_TRACK, n_blocks, lanes).contiguous(),
+    )
+
+
+def wave_segment_reference(
+    prof,
+    Q,
+    seg_off,
+    flat_targets,
+    lengths,
+    bos,
+    cos,
+    los,
+    hb,
+    fb,
+    trk,
+    go,
+    ge,
+    algorithm,
+    with_ends,
+    chunk=64,
+    G=None,
+    R=WAVE_R,
+):
+    """K3 as its CUDA kernel computes it: `ragged.wave_walk_reference`
+    for every target lane, ``G`` threads of ``R`` rows each (``G``: the
+    kernel's `ragged.wave_group` of the segment's rows by default), the
+    passes updating ``hb_out``/``fb_out`` in place.  Same inputs and
+    outputs as `search_segment`; CPU tensors only.  The tests hold it
+    against the JAX package; no call path uses it."""
+    del cos, los
+    rows = min(prof.shape[0], Q - seg_off)
+    G = wave_group(rows, R) if G is None else G
+    n_blocks, _, lanes = lengths.shape
+    N = n_blocks * lanes
+    lens = lengths.reshape(-1).to(torch.int64)
+    idx = sweep.flat_index(lengths, bos, chunk, flat_targets.shape[0])
+    tgt = flat_targets.reshape(-1)[idx]
+    hb_in, fb_in = (x.reshape(-1)[idx].to(torch.int64) for x in (hb, fb))
+    pbuf_h, pbuf_f = hb_in.clone(), fb_in.clone()
+    Qv = torch.full((N,), Q, dtype=torch.int64)
+    trk_in = (wave_start(Qv, go, ge, algorithm) if seg_off == 0
+              else trk.reshape(N_TRACK, N).to(torch.int64))
+    trk_out = wave_walk_reference(
+        prof.reshape(-1), prof.shape[0], torch.zeros(N, dtype=torch.int64),
+        seg_off, torch.full((N,), rows, dtype=torch.int64), Qv, tgt, lens,
+        hb_in, fb_in, pbuf_h, pbuf_f, go, ge, algorithm, with_ends, trk_in,
+        G, R, True,
+    )
+    out = wave_finish(trk_out, Qv, lens, algorithm, with_ends, True)
+    in_tgt = torch.arange(idx.shape[0])[:, None] < lens[None]
+    hb_out, fb_out = hb.clone(), fb.clone()
+    hb_out.reshape(-1)[idx[in_tgt]] = pbuf_h[in_tgt].to(torch.int32)
+    fb_out.reshape(-1)[idx[in_tgt]] = pbuf_f[in_tgt].to(torch.int32)
+    return (
+        *(x.reshape(n_blocks, lanes) for x in out), hb_out, fb_out,
+        trk_out.to(torch.int32).reshape(N_TRACK, n_blocks, lanes),
     )
 
 

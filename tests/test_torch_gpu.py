@@ -90,11 +90,14 @@ def test_kernel_split_by_scratch_budget_matches_plain(
     dev, kernel, split, monkeypatch
 ):
     """A scratch budget too small for one launch splits the call into
-    launches over query (group) and lane ranges; the result is the same."""
+    launches over query (group) and lane ranges; the result is the same.
+    K1's per-launch bytes are its pass buffer (H and F per query and
+    target column), which a tier of several passes needs: 600 residues at
+    the 1024 tier, four passes of 256 rows."""
     rng = np.random.default_rng(5)
     seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in LENGTHS * 30]
     if kernel == "ragged":
-        qls = [200, 31, 90]
+        qls = [600, 31, 90]
         queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
         fp = packing.pack_sequences_flat(seqs)
         args = (
@@ -104,7 +107,9 @@ def test_kernel_split_by_scratch_budget_matches_plain(
         )
         mod, fn, plain, n_units = ragged, ragged.search_flat, \
             ragged.search_flat_reference, len(qls)
-        unit_rows = args[0].shape[1]
+        unit_rows = ragged.wave_buffer_rows(
+            args[0].shape[1], fp.flat_targets.shape[0], fp.n_blocks)
+        assert unit_rows > 0
     else:
         qls = [64, 1, 40, 63, 7, 50, 29, 33, 21, 3, 64, 12, 9, 17]
         queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
@@ -165,16 +170,66 @@ def test_ragged_long_kernel_matches_plain(dev, algo, with_ends):
         assert _segments_equal(q, fp, dev, algo, with_ends, 32) == -(-Q // 32)
 
 
-def test_ragged_long_split_by_scratch_budget_matches_plain(dev, monkeypatch):
-    """A scratch budget of 128 lanes x 64 rows splits each of three
-    64-row segments into one launch per 128 lanes."""
+def _motif_targets(rng, n):
+    """``n`` targets of a repeated 6-residue motif (random phase, 3% of
+    residues random) at the edge lengths: equal maxima in many columns."""
+    motif = np.array([17, 4, 8, 11, 12, 18], np.uint8)
+    out = []
+    for L in (LENGTHS * n)[:n]:
+        t = np.resize(np.roll(motif, int(rng.integers(0, 6))), L)
+        hit = rng.random(L) < 0.03
+        t[hit] = rng.integers(0, 20, int(hit.sum()))
+        out.append(t.astype(np.uint8))
+    return out, motif
+
+
+@pytest.mark.parametrize("tie_heavy", [False, True])
+@pytest.mark.parametrize("algo", ["nw", "hw", "ov", "sw"])
+def test_ragged_long_multi_pass_segment_matches_plain(dev, algo, tie_heavy):
+    """K3 at 2048-row segments: a 2,563-residue query is 8 passes of 256
+    rows, then 3 passes whose last ends inside a thread's 16 rows; on
+    random targets and on repeated-motif ones with a motif query."""
     rng = np.random.default_rng(8)
-    seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in LENGTHS * 30]
+    if tie_heavy:
+        seqs, motif = _motif_targets(rng, 300)
+        q = np.resize(motif, 2563).astype(np.uint8)
+    else:
+        seqs = [rng.integers(0, 20, n).astype(np.uint8)
+                for n in LENGTHS * 30]
+        q = rng.integers(0, 20, 2563).astype(np.uint8)
+        q[3:33] = seqs[8][100:130]
     fp = packing.pack_sequences_flat(seqs)
-    q = rng.integers(0, 20, 192).astype(np.uint8)
-    monkeypatch.setattr(ragged, "SCRATCH_BYTES", 8 * 64 * 128)
-    n_launches = _segments_equal(q, fp, dev, "sw", True, 64)
-    assert n_launches == 3 * -(-fp.lengths.size // 128) > 3
+    for with_ends in (False, True):
+        assert _segments_equal(q, fp, dev, algo, with_ends, 2048) == 2
+
+
+@pytest.mark.parametrize("tie_heavy", [False, True])
+@pytest.mark.parametrize("algo", ["nw", "hw", "ov", "sw"])
+def test_ragged_kernel_pass_boundaries_match_plain(dev, algo, tie_heavy):
+    """K1 at query lengths on either side of a thread's 16 rows and of a
+    pass (64, 128 and 256 rows at G = 4, 8 and 16), through several
+    passes, in both modes."""
+    rng = np.random.default_rng(10)
+    if tie_heavy:
+        seqs, motif = _motif_targets(rng, 300)
+    else:
+        seqs = [rng.integers(0, 20, n).astype(np.uint8)
+                for n in LENGTHS * 30]
+    fp = packing.pack_sequences_flat(seqs)
+    for qls in ([16, 17, 63, 64], [65, 127, 128], [255, 256, 257, 515]):
+        if tie_heavy:
+            queries = [np.resize(motif, n).astype(np.uint8) for n in qls]
+        else:
+            queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
+        for with_ends in (False, True):
+            args = (
+                torch.from_numpy(ragged.make_profiles_host(queries, S)).to(
+                    dev),
+                torch.tensor(qls, dtype=torch.int32, device=dev),
+                *_flat(fp, dev), 3, 1, algo, with_ends, fp.chunk, True,
+            )
+            _equal(ragged.search_flat(*args),
+                   ragged.search_flat_reference(*args))
 
 
 @pytest.mark.parametrize("algo", ["nw", "sw"])

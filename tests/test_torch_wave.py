@@ -1,0 +1,212 @@
+"""K1's and K3's wavefront walk, emulated on the CPU, against `pyopal_tpu`.
+
+The CUDA kernels of K1 (``csrc/ragged.cu``) and K3 (``csrc/ragged_long.cu``)
+walk each (query, target) with a group of G threads, R query rows each,
+in passes of G * R rows (``csrc/wave.cuh``).  The kernels run only on the
+card; their CPU emulations, `ragged.wave_reference` and
+`ragged_long.wave_segment_reference`, mirror the passes, the per-thread
+row blocks, the per-thread trackers and their merge.  Here they run at a
+small G and R (4 and 2: passes of 8 rows) so that a short query crosses
+threads and passes, and must equal
+
+- for K1, `pyopal_tpu.ops.pallas_ragged.search_flat` (interpreted,
+  ``safe_pad=True``);
+- for K3, `pyopal_tpu.ops.pallas_ragged_long.search_flat_long` with
+  ``QSEG`` lowered to 32 in both packages (segments of 4 passes), and
+  segment by segment, with every output it hands on, the port's plain
+  version `ragged_long.segment_reference`;
+
+with tolerance 0: all compute integer DP.  Query lengths sit on either
+side of a pass (G * R - 1, G * R, G * R + 1, 2 * G * R + 3), targets at
+the chunk edges (0, 1, 63, 64, 65, 129 residues), and a tie-heavy case
+(a query and targets made of one repeated motif) puts equal maxima in
+different threads, passes and columns.  The interpreted reference
+kernels compile once per algorithm, mode and gap pair (~1 s for K1 at
+``unroll=1``, ~3 s for K3), so each K1 case makes one reference call
+with every query in it, and K3 calls the reference in the cases of
+`K3_REF` only; the file takes about a minute on one CPU process.
+"""
+
+import functools
+import itertools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyopal_tpu.matrices import ScoringMatrix
+from pyopal_tpu.ops import packing as ref_packing
+from pyopal_tpu.ops import pallas_ragged as pr
+from pyopal_tpu.ops import pallas_ragged_long as prl
+from pyopal_tpu_torch.ops import ragged, ragged_long
+
+S = ScoringMatrix.from_name("BLOSUM50").int_data()
+ALGOS = ["nw", "hw", "ov", "sw"]
+G, R = 4, 2
+QLENS = [G * R - 1, G * R, G * R + 1, 2 * G * R + 3]
+EDGE_LENGTHS = [0, 1, 63, 64, 65, 129]
+#: BLOSUM50 codes of W, C, H, K, M, Y
+MOTIF = np.array([17, 4, 8, 11, 12, 18], np.uint8)
+GAPS = [(3, 1), (1, 3), (0, 0)]
+#: (algorithm, with_ends, gaps): every algorithm and mode at gaps 3/1,
+#: and every algorithm in end mode at 1/3 and 0/0
+CASES = [(a, e, (3, 1)) for a, e in itertools.product(ALGOS, [False, True])]
+CASES += [(a, True, g) for a, g in itertools.product(ALGOS, GAPS[1:])]
+
+
+def _motif(n, phase=0):
+    return np.resize(np.roll(MOTIF, phase), n).astype(np.uint8)
+
+
+def _targets():
+    """Random targets at the edge lengths and at seeded lengths, then
+    repeated-motif targets at the edge lengths (random phases)."""
+    rng = np.random.default_rng(31)
+    lens = EDGE_LENGTHS + [int(n) for n in rng.integers(0, 90, 12)]
+    seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in lens]
+    seqs += [_motif(n, int(rng.integers(0, 6))) for n in EDGE_LENGTHS[1:]]
+    return seqs
+
+
+def _queries():
+    """Queries of `QLENS` residues, each holding 6 residues of the
+    129-residue target, then a motif query of 2 * G * R + 3."""
+    rng = np.random.default_rng(37)
+    qs = [rng.integers(0, 20, n).astype(np.uint8) for n in QLENS]
+    for q in qs:
+        q[1:7] = _targets()[5][40:46]
+    return qs + [_motif(QLENS[-1], 2)]
+
+
+def _flat(fp):
+    return (fp.flat_targets, fp.lengths, fp.block_of_step, fp.chunk_of_step,
+            fp.last_of_step)
+
+
+@functools.lru_cache(maxsize=None)
+def _pack():
+    return ref_packing.pack_sequences_flat(_targets())
+
+
+def _assert_equal(got, ref, what):
+    for k, (g, r) in enumerate(zip(got, ref)):
+        assert g.dtype == torch.int32, what
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r),
+                                      err_msg=f"{what} plane {k}")
+
+
+@pytest.mark.parametrize("algo, with_ends, gaps", CASES)
+def test_k1_wave_matches_reference(algo, with_ends, gaps):
+    """K1's walk at G = 4, R = 2 equals the interpreted reference kernel
+    on every lane; at gaps 3/1 also at G = 2, R = 4 and at the kernel's
+    own G and R."""
+    fp = _pack()
+    qs = _queries()
+    ref = pr.search_flat(
+        jnp.asarray(pr.make_profiles_host(qs, S), jnp.bfloat16),
+        jnp.asarray([len(q) for q in qs], jnp.int32),
+        *(jnp.asarray(a) for a in _flat(fp)), *gaps, algo, with_ends,
+        interpret=True, chunk=fp.chunk, safe_pad=True, unroll=1,
+    )
+    args = (
+        torch.from_numpy(ragged.make_profiles_host(qs, S)),
+        torch.tensor([len(q) for q in qs], dtype=torch.int32),
+        *(torch.from_numpy(a) for a in _flat(fp)), *gaps, algo, with_ends,
+        fp.chunk,
+    )
+    for g, r in ((G, R), (2, 4)) if gaps == (3, 1) else ((G, R),):
+        _assert_equal(ragged.wave_reference(*args, G=g, R=r), ref,
+                      f"G={g} R={r}")
+    if gaps == (3, 1):  # the kernel's own: one pass of G = 4 x 16 rows
+        assert ragged.wave_group(64) == 4
+        _assert_equal(ragged.wave_reference(*args), ref, "kernel's G, R")
+
+
+@pytest.fixture
+def qseg32(monkeypatch):
+    monkeypatch.setattr(prl, "QSEG", 32)
+    monkeypatch.setattr(ragged_long, "QSEG", 32)
+
+
+#: K3's cases: every algorithm and mode at gaps 3/1, sw and ov in end
+#: mode at 1/3 and 0/0 (the trackers that rows and columns tie in)
+K3_CASES = CASES[:8] + [(a, True, g) for a, g in
+                        itertools.product(["sw", "ov"], GAPS[1:])]
+#: those held against the reference too (end mode on the motif query,
+#: score mode on the random one); the rest against the plain version
+K3_REF = set(CASES[:8]) | {("sw", True, (0, 0)), ("ov", True, (0, 0))}
+
+
+#: rows of the last segment of K3's queries: the `QLENS` beyond one pass,
+#: so that it crosses a pass boundary and ends inside a thread
+K3_TAILS = [n for n in QLENS if n > G * R]
+
+
+def _k3_queries():
+    """Queries of two full 32-row segments (a shared random prefix holding
+    30 residues of the 129-residue target) and a last segment of each of
+    `K3_TAILS` rows; then a motif query of 64 + 2 * G * R + 3 rows."""
+    rng = np.random.default_rng(41)
+    prefix = rng.integers(0, 20, 64).astype(np.uint8)
+    prefix[20:50] = _targets()[5][50:80]
+    qs = [np.concatenate([prefix, rng.integers(0, 20, n).astype(np.uint8)])
+          for n in K3_TAILS]
+    return qs + [_motif(64 + QLENS[-1], 1)]
+
+
+@pytest.mark.parametrize("algo, with_ends, gaps", K3_CASES)
+def test_k3_wave_matches_reference(qseg32, algo, with_ends, gaps):
+    """K3's walk at G = 4, R = 2: each 32-row segment is 4 passes, the
+    second starts at row 32.  Every segment of every query against the
+    plain version, with the boundary rows and trackers it hands on (the
+    random queries share their first two segments); the answer of an
+    83-row query (the motif one in end mode, else the random one) against
+    the reference where `K3_REF` says so."""
+    fp = _pack()
+    port_flat = [torch.from_numpy(a) for a in _flat(fp)]
+    wave = functools.partial(ragged_long.wave_segment_reference, G=G, R=R)
+    queries = _k3_queries()
+    states = {}  # the state after the shared first two segments
+    for k, q in enumerate(queries):
+        n_seg = -(-len(q) // 32)
+        prof = torch.from_numpy(
+            ragged.make_profiles_host([q], S, q_pad=n_seg * 32)[0])
+        hb = torch.zeros(fp.flat_targets.shape, dtype=torch.int32)
+        fb = torch.full_like(hb, ragged_long.NEG)
+        trk = torch.zeros((5, fp.n_blocks, 128), dtype=torch.int32)
+        # the first two segments of the random queries are one walk
+        # where the trackers start alike (nw and hw start from Q)
+        shared = k < len(K3_TAILS) and algo in ("sw", "ov")
+        for s in range(n_seg):
+            if shared and s < 2 and s in states:
+                hb, fb, trk = states[s]
+                continue
+            args = (prof[32 * s:32 * (s + 1)], len(q), 32 * s, *port_flat,
+                    hb, fb, trk, *gaps, algo, with_ends, fp.chunk)
+            want = ragged_long.segment_reference(*args)
+            got = wave(*args)
+            for name, g, w in zip(
+                    ("scores", "q_ends", "t_ends", "hb", "fb", "trk"),
+                    got, want):
+                assert torch.equal(g, w), (len(q), s, name)
+            hb, fb, trk = want[3:]
+            if shared and s < 2:
+                states[s] = (hb, fb, trk)
+        if (algo, with_ends, gaps) in K3_REF and k == (
+                len(queries) - 1 if with_ends else len(K3_TAILS) - 1):
+            ref = prl.search_flat_long(
+                q, S, *(jnp.asarray(a) for a in _flat(fp)), *gaps, algo,
+                with_ends, interpret=True, chunk=fp.chunk,
+            )
+            _assert_equal(got[:3], ref, f"Q={len(q)}")
+
+
+def test_wave_group_and_buffer():
+    """The group size the kernels take per tier, and when K1 needs its
+    pass buffer (tiers beyond one pass of 256 rows)."""
+    assert [ragged.wave_group(n) for n in (1, 32, 33, 64, 65, 128, 256,
+                                           257, 2048, 5120)] == [
+        2, 2, 4, 4, 8, 8, 16, 16, 16, 16]
+    assert ragged.wave_buffer_rows(256, 1000, 3) == 0
+    assert ragged.wave_buffer_rows(512, 1000, 3) == 334
