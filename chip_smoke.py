@@ -15,22 +15,22 @@ Phases (the first failure ends the run with a nonzero exit code):
    ``sm_90a``, in parallel, with each kernel's registers, stack frame
    and spills as ``ptxas`` reports them; beside them the probe
    ``tools/dpx_rate.cu``, which then measures the results per SM per
-   clock of the two DPX instructions of K1's and K3's walk, alone and in
-   the walk's sw cell;
+   clock of the two DPX instructions of the wavefront walk (K1, K2, K3,
+   K5), alone and in the walk's sw cell;
 3. each kernel against its plain PyTorch version on the card, every
    output plane in score and end modes: all four algorithms at several
    query tiers, with edge target lengths and a 2500-residue self-hit
    (score > 12000), and calls that a small scratch budget splits into
-   several launches (K1: at a tier of several passes, which needs its
-   pass buffer); K1 at the fine tiers 4608/5120/6144; K3 segment by
-   segment (scores, ends, the boundary rows and the trackers it hands
-   on) at 32- and 64-row segments, and at 2048 rows (8 passes of the
-   walk) for a 6,500-residue query against two 4,000-residue slices of
-   itself; K6 (the grouped
-   kernel) at queries of 13, 256 and 1,000 residues with gaps 3/1, 1/3
-   and 0/0 on every lane, padding lanes included; K4 and K5 (no
-   ``safe_pad``) at every algorithm, both modes where the kernel has
-   them, gaps 3/1, 1/3 and 0/0, tiers 64 to 2048 (K4) and 1024 and 4096
+   several launches (K1, K2 and K5: at tiers of several passes, which
+   need their pass buffer); K1 at the fine tiers 4608/5120/6144; K3
+   segment by segment (scores, ends, the boundary rows and the trackers
+   it hands on) at 32- and 64-row segments, and at 2048 rows (8 passes
+   of the walk) for a 6,500-residue query against two 4,000-residue
+   slices of itself; K6 (the grouped kernel) at queries of 13, 256 and
+   1,000 residues with gaps 3/1, 1/3 and 0/0 on every lane, padding
+   lanes included; K4 and K5 (no ``safe_pad``) at every algorithm, both
+   modes where the kernel has them, gaps 3/1, 1/3 and 0/0 (K5 also
+   -1/2, which walks every row), tiers 64 to 2048 (K4) and 1024 and 4096
    (K5), and with a random 32 x 32 matrix over targets that hold symbol
    31 as a real letter; K7 (the narrow pass) at gaps 3/1, 0/0 and
    255/255, its scores also held against min(K2's, 255);
@@ -70,12 +70,14 @@ Phases (the first failure ends the run with a nonzero exit code):
    its plain version on a 1,000-target slice); K7 on the main path's 8
    q8 groups, one query a 256-residue stretch of a target, its scores
    min(K2's, 255) and its flagged lanes counted;
-   then K1 and K3 against their plain versions at full width where the
-   wavefront walk changes hands: query lengths on either side of a
-   thread's 16 rows and of a pass (64, 128, 256 rows), through several
-   passes (K1 up to 515 rows, K3 a 2,563-row query in two segments), on
-   the main database and on a tie-heavy database of 12,071
-   repeated-motif sequences at its lengths, searched with motif queries;
+   then K1, K2, K3 and K5 against their plain versions at full width
+   where the wavefront walk changes hands: query lengths on either side
+   of a thread's 16 rows and of a pass (64, 128, 256 rows), through
+   several passes (K1 up to 515 rows, K2's q8 groups up to 512, K3 a
+   2,563-row query in two segments, K5 2,560-2,563 rows, also at a
+   negative gap, which walks all 4,096 rows), on the main database and
+   on a tie-heavy database of 12,071 repeated-motif sequences at its
+   lengths, searched with motif queries;
 6. timings with CUDA events after a warm-up, each kernel held against
    its plain version at the main path's shapes (K3: one 2048-row
    segment of the 35,000-residue query; K6: the sharded path's 40
@@ -83,9 +85,9 @@ Phases (the first failure ends the run with a nonzero exit code):
    queued before the first runs, and the whole database stacked as one
    group; K4, K5 and K7 at phase 5d's shapes, also against their plain
    versions on a 1,000-target slice), the bound of each kernel over the
-   cells its function needs (K5's walked pad rows reported apart; K1
-   and K3 at their six DPX-fused instructions a cell, their plain int32
-   bound beside it),
+   cells its function needs (K5's walked rows reported apart; the
+   wavefront walk's kernels, K1, K2, K3 and K5, at their six DPX-fused
+   instructions a cell, their plain int32 bound beside it),
    end-to-end throughput, long-query and sharded call times, and each
    kernel's launches in one ``align_arrays`` and one ``align`` call,
    counted;
@@ -112,14 +114,15 @@ GO, GE = 3, 1
 #: the next column's E and the next row's F), E = max(G, E - ge) (2), F =
 #: max(G, F - ge) (2), diagonal max(H + s, E) (2), clamp at 0 (1), H = max
 #: with F (1), running best (1): the bound of the one-thread walk
-#: (``csrc/dp.cuh``: K2, K4-K7), and ``int32_bound_ms`` of every kernel
+#: (``csrc/dp.cuh``: K4, K6; K7's own loop), and ``int32_bound_ms`` of
+#: every kernel
 OPS_PER_CELL_SW_SCORE = 10
 #: instructions per cell of the wavefront walk (``csrc/wave.cuh``: K1,
-#: K3) with Hopper's DPX add-max: E, F and the diagonal one add-max each,
-#: H = max(H, F, 0), G = H - go and the running best; its bound counts
-#: them at the highest of the int32 rate and the rates measured by
-#: ``tools/dpx_rate.cu`` in this run (each DPX instruction alone, and
-#: the cell's six together)
+#: K2, K3, K5) with Hopper's DPX add-max: E, F and the diagonal one
+#: add-max each, H = max(H, F, 0), G = H - go and the running best; its
+#: bound counts them at the highest of the int32 rate and the rates
+#: measured by ``tools/dpx_rate.cu`` in this run (each DPX instruction
+#: alone, and the cell's six together)
 OPS_PER_CELL_WAVE = 6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT32_LANES_PER_SM = 64
@@ -450,7 +453,7 @@ def main():
     k2_cases = [
         ("tier64", 512, [64, 1, 40, 63, 7, 50, 29, 33, 21, 3, 64, 12, 9, 17]),
         ("tier256", 512, [256, 129, 200, 255, 140, 180, 222, 250]),
-        ("tier512", 256, [512, 257, 300, 400, 511, 260, 333, 444]),
+        ("tier512", 256, [512, 257, 300, 400, 511, 260, 333, 444, 9, 100]),
     ]
     long_seq = next(t for t in seqs if len(t) >= 256)
     k7_flagged = {}
@@ -485,10 +488,13 @@ def main():
             k7_flagged[f"{label} gaps={gaps}"] = int(
                 (out[0] == q8.NARROW_CAP).sum())
             n_checked += 1
-        if label == "tier64":  # two groups
+        if label == "tier512":  # two passes: K2's pass buffer
             split_cases.append((
                 "q8", q8.search_flat_q8, q8.search_flat_q8_reference,
-                k2_args, 8 * profs.shape[1], fp.lengths.size))
+                k2_args, 8 * q8.QB * ragged.wave_buffer_rows(
+                    512, fp.flat_targets.shape[0], fp.n_blocks),
+                fp.lengths.size))
+        if label == "tier64":  # two groups
             split_cases.append((
                 "q8_narrow", q8.search_flat_q8, q8.search_flat_q8_reference,
                 args, 4 * profs.shape[1], fp.lengths.size))
@@ -510,7 +516,8 @@ def main():
         ("K4 tier256", [256, 200, 129], seqs, S, fp128, (False, True),
          gap_sets),
         ("K4 tier2048", [2000], seqs, S, fp128, (False, True), ((3, 1),)),
-        ("K5 tier1024", [1000, 700], seqs, S, fp128, (False,), gap_sets),
+        ("K5 tier1024", [1000, 700], seqs, S, fp128, (False,),
+         gap_sets + ((-1, 2),)),
         ("K4 32x32 tier256", [256, 100], seqs32, m32, fp32, (False, True),
          ((3, 1),)),
         ("K5 32x32 tier512", [300], seqs32, m32, fp32, (False,), ((3, 1),)),
@@ -542,12 +549,12 @@ def main():
                 "ragged_v1", ragged.search_flat,
                 ragged.search_flat_reference, args, 8 * profs.shape[1],
                 fp.lengths.size))
-        if label == "K5 tier1024":
-            rows = fp.flat_targets.shape[0]
+        if label == "K5 tier1024":  # its pass buffer
             split_cases.append((
                 "ragged_strip", ragged.search_flat,
                 ragged.search_flat_reference, args,
-                8 * (ragged.STRIP + -(-rows // fp.n_blocks)),
+                8 * ragged.wave_buffer_rows(
+                    1024, fp.flat_targets.shape[0], fp.n_blocks),
                 fp.lengths.size))
     # K5 on the 2500-residue self-hit at the 4096 tier: K1's score
     profs = torch.from_numpy(ragged.make_profiles_host([big], S)).to(dev)
@@ -1162,7 +1169,7 @@ def main():
           "k7_lanes": int(k7[0].numel()),
           "equal": True, "seconds": time.perf_counter() - t0, **card})
 
-    # --- 5e. K1 and K3 at the walk's pass boundaries, full width -------------
+    # --- 5e. K1, K2, K3 and K5 at the walk's pass boundaries, full width -----
     # query lengths on either side of a thread's 16 rows and of a pass
     # (64, 128 and 256 rows at G = 4, 8 and 16), through several passes,
     # against the main database; and a tie-heavy database of 12,071
@@ -1228,6 +1235,64 @@ def main():
             if n != 2:
                 fail(f"K3 {label}: {n} launches, want 2")
             edge_cases["K3"][f"{label} {algo} ends={ends}"] = n
+    # K2: q8 groups whose slots end on either side of a thread's 16 rows
+    # and of a pass (G = 4, 8, 16 at tiers 64, 128, 256; two passes at
+    # 512), a short group (empty slots) at 64; then motif queries on the
+    # tie-heavy database, equal maxima across slots, threads and passes
+    fpw_full = packing.pack_database_slice_flat(db, 0, n_t, lanes=512)
+    fpw_tie = packing.pack_sequences_flat(tie_t, lanes=512)
+    edge_cases["K2"] = {}
+    for label, fpk, qs, ms_ in (
+        ("tier 64: 16, 17, 63, 64 and 4 empty slots", fpw_full,
+         [edge_query(16, False), edge_query(17, False), edge_query(63),
+          edge_query(64)], modes),
+        ("tier 128: 65-128", fpw_full,
+         [edge_query(n) for n in (65, 127, 128, 66, 96, 100, 111, 112)],
+         modes),
+        ("tier 256: 129-256", fpw_full,
+         [edge_query(n) for n in (255, 256, 129, 130, 191, 192, 240, 254)],
+         modes),
+        ("tier 512 (two passes): 257-512", fpw_full,
+         [edge_query(n) for n in (257, 511, 512, 258, 272, 300, 383, 384)],
+         modes),
+        ("tie-heavy tier 512: 259-512", fpw_tie,
+         [tie_query(n) for n in (259, 512, 260, 300, 333, 400, 500, 511)],
+         (("sw", True), ("ov", True))),
+    ):
+        groups = q8.plan_groups([len(q) for q in qs])
+        k2e = tuple(torch.from_numpy(a).to(dev) for a in
+                    q8.make_profiles_q8_host(qs, S, groups, lanes=512))
+        for algo, ends in ms_:
+            before = q8.launches["q8"]
+            compare("q8", q8.search_flat_q8, q8.search_flat_q8_reference,
+                    (*k2e, *dev_flat(fpk), GO, GE, algo, ends, fpk.chunk),
+                    f"K2 {label} {algo} ends={ends}")
+            if q8.launches["q8"] != before + 1:
+                fail(f"K2 {label}: not one launch")
+            edge_cases["K2"][f"{label} {algo} ends={ends}"] = 1
+    # K5: 2,560-2,563 rows at the 4096 tier (a pass ends at row 2,560;
+    # the walk stops in the pass that holds row Q - 1), every algorithm;
+    # then a negative gap, which walks all 4,096 rows (the pad rows count
+    # for sw and ov)
+    edge_cases["K5"] = {}
+    k5_q = {n: edge_query(n) for n in (2560, 2561, 2562, 2563)}
+    for algo, gaps, lens_ in (
+        [("sw", (GO, GE), (2560, 2561, 2562, 2563))]
+        + [(a, (GO, GE), (2560, 2563)) for a in ("nw", "hw", "ov")]
+        + [("sw", (-1, 2), (2560, 2561, 2562, 2563)),
+           ("ov", (-1, 2), (2560, 2563))]
+    ):
+        profs = torch.from_numpy(ragged.make_profiles_host(
+            [k5_q[n] for n in lens_], S)).to(dev)
+        qlens = torch.tensor(lens_, dtype=torch.int32, device=dev)
+        before = ragged.launches["ragged_strip"]
+        compare("ragged_strip", ragged.search_flat,
+                ragged.search_flat_reference,
+                (profs, qlens, *dev_flat(fp_full), *gaps, algo, False,
+                 fp_full.chunk, False), f"K5 {lens_} {algo} gaps={gaps}")
+        if ragged.launches["ragged_strip"] != before + 1:
+            fail(f"K5 {lens_} {algo} gaps={gaps}: not one launch")
+        edge_cases["K5"][f"{lens_} {algo} gaps={gaps}"] = 1
     emit({"phase": "wave_edges", "cases": edge_cases, "equal": True,
           "targets": n_t, "seconds": time.perf_counter() - t0, **card})
 
@@ -1305,15 +1370,15 @@ def main():
         out_bytes = 3 * 4 * out[0].numel()
         in_bytes = (fpk.flat_targets.size + fpk.lengths.nbytes
                     + sum(t.numel() * t.element_size() for t in base[:3]))
+        q_pad = base[0].shape[1] // (q8.QB if key == "q8" else 1)
         results[key] = {
             "ms": ms, "plain_ms": plain_ms, "max_abs_err": max(errs),
             "cells": cells, "gcups": cells / (ms * 1e-3) / 1e9,
             "bytes": in_bytes + out_bytes,
-            **bound(cells, in_bytes + out_bytes, wave=key != "q8"),
+            **bound(cells, in_bytes + out_bytes, wave=True),
+            # the walk: threads per target, rows per thread
+            "wave": {"G": ragged.wave_group(q_pad), "R": ragged.WAVE_R},
         }
-        if key != "q8":  # K1's walk: threads per target, rows per thread
-            results[key]["wave"] = {"G": ragged.wave_group(base[0].shape[1]),
-                                    "R": ragged.WAVE_R}
         emit({"phase": "kernel_timing", "kernel": key, "mode": "sw score",
               **results[key], **card})
 
@@ -1322,11 +1387,12 @@ def main():
     # query at the 4096 tier; K7: the 8 q8 groups): each against its plain
     # version on the 1,000-target slice (K4 in both modes) and on the whole
     # database in score mode (the plain time), then timed.  Cells (and the
-    # bound) count the query rows the function needs: K5 also walks the
-    # 1,096 pad rows of its 4096 tier, which score PAD_SCORE and cannot
-    # raise a score, so they are reported apart as walked cells.
+    # bound) count the query rows the function needs; K5's walk stops at
+    # the pass that holds row 2,999 (12 passes of 256 rows of the 4096
+    # tier's 16, the TPU kernel walks all 4,096), reported apart as walked
+    # cells.  K5 runs the wavefront walk, K4 and K7 the one-thread walk.
     fps512 = packing.pack_database_slice_flat(db, lo, hi, lanes=lanes_q8)
-    walked_rows = {"ragged_strip": 4096}
+    walked_rows = {"ragged_strip": -(-3000 // 256) * 256}
     new_shapes = {  # name: (inputs, packs, query rows, modes on the slice)
         "ragged_v1": (
             (torch.from_numpy(ragged.make_profiles_host(enc, S32)).to(dev),
@@ -1366,12 +1432,14 @@ def main():
             "max_abs_err": max(errs), "cells": cells,
             "gcups": cells / (ms * 1e-3) / 1e9,
             "bytes": in_bytes + out_bytes,
-            **bound(cells, in_bytes + out_bytes),
+            **bound(cells, in_bytes + out_bytes, wave=key in walked_rows),
         }
         if key in walked_rows:
             walked = walked_rows[key] * residues
             results[key].update(walked_cells=walked,
-                                walked_gcups=walked / (ms * 1e-3) / 1e9)
+                                walked_gcups=walked / (ms * 1e-3) / 1e9,
+                                wave={"G": ragged.wave_group(4096),
+                                      "R": ragged.WAVE_R})
         emit({"phase": "kernel_timing", "kernel": key, "mode": "sw score",
               **results[key], **card})
 

@@ -1,34 +1,28 @@
-// Affine-gap DP of one (query, target) pair, shared by the int32 kernels
-// (ragged.cu, q8.cu, ragged_long.cu, group.cu, ragged_v1.cu,
-// ragged_strip.cu).
+// The one-thread affine-gap DP of K4 (ragged_v1.cu) and K6 (group.cu),
+// and the trackers and finish that every int32 kernel shares (Track,
+// track_start, dp_finish: also K1, K2, K3 and K5 on wave.cuh).  K7
+// (q8_narrow.cu) takes its constants.
 //
-// One thread owns one pair and walks the DP matrix column by column
-// (target positions, outer loop) and row by row inside a column (query
-// positions, inner loop).  F, the vertical gap, and the H values above
-// and up-left of the current cell live in registers; the previous
-// column's H/E per query row live in a per-launch scratch laid out
-// [query][row][lane] as int2, so the 32 threads of a warp (neighbouring
-// lanes) load and store one contiguous 256-byte run per row.
-//
-// A walk may cover only a segment of the query's rows (the long-query
-// kernel, ragged_long.cu, and the strips of ragged_strip.cu): the row
-// above the segment then comes from the previous segment's bottom row (H
-// and F at every column), the segment writes its own bottom row for the
-// next one, and the trackers (Track) carry over between segments.
+// dp_walk: one thread owns one (query, target) pair and walks the DP
+// matrix column by column (target positions, outer loop) and row by row
+// inside a column (query positions, inner loop).  F, the vertical gap,
+// and the H values above and up-left of the current cell live in
+// registers; the previous column's H/E per query row live in a
+// per-launch scratch laid out [query][row][lane] as int2, so the 32
+// threads of a warp (neighbouring lanes) load and store one contiguous
+// 256-byte run per row.  The walk covers the profile's pad rows past the
+// query, as the TPU kernels of K4 and K6 do (PAD_ROWS): they count for
+// sw's best cell and ov's last column, while hw, ov and nw read the
+// query's last row at Q - 1.
 //
 // Tie-breaking falls out of the visiting order: trackers update only on
 // strictly greater values, so the first optimum in (column, row) order
 // wins — max score, then min target column, then min query row, the
-// rule of the reference oracle (pyopal_tpu/ops/naive.py).  Across
-// segments, sw also takes an equal score at a smaller column, which a
-// later segment (larger rows) can reach after an earlier one has moved
-// on.  hw/ov read the last query row after each column; ov reads the
-// last target column with the same strictly-greater rule and loses ties
-// to the last row; nw reads the terminal cell.  Each thread stops at its
-// own target length, so pad symbols are never read, and K1-K3 stop at the
-// query's length; K4-K6 (ragged_v1.cu, ragged_strip.cu, group.cu) also
-// walk the profile's pad rows past the query, as their TPU kernels do
-// (PAD_ROWS).
+// rule of the reference oracle (pyopal_tpu/ops/naive.py).  hw/ov read
+// the last query row after each column; ov reads the last target column
+// with the same strictly-greater rule and loses ties to the last row; nw
+// reads the terminal cell.  Each thread stops at its own target length,
+// so pad symbols are never read.
 //
 // All arithmetic is int32; NEG = -2^30 stays clear of wraparound because
 // every recurrence takes a max with a finite term before subtracting a
@@ -61,64 +55,36 @@ __device__ __forceinline__ Track track_start(int Q, int go, int ge) {
   return Track{ALG == HW ? empty : 0, ALG == NW ? empty : NEG, -1, -1, -1};
 }
 
-// Walks rows [row0, row0 + rows) of a query of Q rows against one target.
+// Walks rows [0, rows) of a query of Q <= rows rows (rows past Q are the
+// profile's pad rows) against one target.
 //
-// prof: profile row row0 of this query; row i at prof + i * prof_stride
+// prof: profile row 0 of this query; row i at prof + i * prof_stride
 // tgt: target position 0 of this lane; position j at tgt + j * tgt_stride
 // scr: scratch row 0 of this (query, lane); row i at scr + i * scr_stride
-// SEG: hb_in/fb_in hold H and F of row row0 - 1 at every column (read when
-//   row0 > 0), hb_out/fb_out receive those of the walk's last row; all
-//   four are laid out like tgt.  Without SEG they are not touched.  They
-//   may be the same buffers (K5 updates its strip boundary in place):
-//   column j is read before it is written, and the four pointers are not
-//   __restrict__, so no load is moved past a store or served from the
-//   read-only cache.
-// PAD_ROWS: the walk's rows go past the query's Q rows (profile rows that
-//   score PAD_SCORE); they count for sw's best cell and ov's last column,
-//   while hw, ov and nw read the last row at row Q - 1, in whichever
-//   segment holds it (with SEG, the segments of one walk cover Q_pad rows
-//   and only one of them holds row Q - 1).
-template <int ALG, bool ENDS, bool SEG, bool PAD_ROWS = false>
+template <int ALG, bool ENDS>
 __device__ __forceinline__ void dp_walk(
-    const int* __restrict__ prof, int prof_stride, int row0, int rows, int Q,
+    const int* __restrict__ prof, int prof_stride, int rows, int Q,
     const uint8_t* __restrict__ tgt, int tgt_stride, int len,
-    int2* __restrict__ scr, size_t scr_stride, int go, int ge,
-    const int* hb_in, const int* fb_in, int* hb_out, int* fb_out, Track& t) {
+    int2* __restrict__ scr, size_t scr_stride, int go, int ge, Track& t) {
   constexpr bool kPenRow = ALG == NW;
   constexpr bool kPenCol = ALG == NW || ALG == HW;
-  const bool top = !SEG || row0 == 0;  // the closed-form row 0 is above
-  // the query's last row, counted from the walk's first row; only a
-  // segmented walk over pad rows (K5) may hold it in any of its segments
-  const int last = SEG ? Q - 1 - row0 : Q - 1;
-  const bool has_last = SEG && PAD_ROWS
-                            ? 0 <= last && last < rows
-                            : rows > 0 && (!SEG || row0 + rows == Q);
+  const int last = Q - 1;  // the query's last row
+  const bool has_last = rows > 0;
 
   // column 0 of the DP matrix: the first-column boundary, E = -inf
   for (int i = 0; i < rows; ++i) {
-    scr[i * scr_stride] =
-        make_int2(kPenCol ? -(go + (row0 + i) * ge) : 0, NEG);
+    scr[i * scr_stride] = make_int2(kPenCol ? -(go + i * ge) : 0, NEG);
   }
-  // H of the row above at the previous column (column 0: its boundary)
-  int hleft = kPenCol && !top ? -(go + (row0 - 1) * ge) : 0;
 
   for (int j = 0; j < len; ++j) {
     const size_t jt = (size_t)j * tgt_stride;
     const int* __restrict__ p = prof + tgt[jt];
     const bool last_col = j == len - 1;
-    // the row above at columns j and j + 1, and F entering the walk
-    int hdiag, hup, f;
-    if (top) {
-      hdiag = (kPenRow && j > 0) ? -(go + (j - 1) * ge) : 0;
-      hup = kPenRow ? -(go + j * ge) : 0;
-      f = NEG;
-    } else {
-      hdiag = hleft;
-      hup = hb_in[jt];
-      f = fb_in[jt];
-      hleft = hup;
-    }
-    int hq = 0;  // H at the query's last row (PAD_ROWS)
+    // the closed-form row 0 above at columns j and j + 1, and F entering
+    int hdiag = (kPenRow && j > 0) ? -(go + (j - 1) * ge) : 0;
+    int hup = kPenRow ? -(go + j * ge) : 0;
+    int f = NEG;
+    int hq = 0;  // H at the query's last row
     for (int i = 0; i < rows; ++i) {
       const int2 he = scr[i * scr_stride];
       const int e = max(he.x - go, he.y - ge);
@@ -131,9 +97,9 @@ __device__ __forceinline__ void dp_walk(
       scr[i * scr_stride] = make_int2(h, e);
       if (ALG == SW) {
         if (ENDS) {
-          if (h > t.best || (SEG && h == t.best && j < t.bj)) {
+          if (h > t.best) {
             t.best = h;
-            t.bi = row0 + i;
+            t.bi = i;
             t.bj = j;
           }
         } else {
@@ -142,15 +108,10 @@ __device__ __forceinline__ void dp_walk(
       }
       if (ALG == OV && last_col && h > t.cap) {
         t.cap = h;
-        t.ci = row0 + i;
+        t.ci = i;
       }
-      if (PAD_ROWS && i == last) hq = h;
+      if (i == last) hq = h;
     }
-    if (SEG) {  // hup and f are now H and F of the walk's last row
-      hb_out[jt] = hup;
-      fb_out[jt] = f;
-    }
-    if (!PAD_ROWS) hq = hup;  // the walk's last row is the query's
     if (has_last) {
       if ((ALG == HW || ALG == OV) && hq > t.best) {
         t.best = hq;
@@ -197,20 +158,6 @@ __device__ __forceinline__ void dp_finish(const Track& t, int Q, int len,
   *out_score = score;
   *out_qe = kPlanes ? qe : -1;
   *out_te = kPlanes ? te : -1;
-}
-
-// Scores one whole pair (every query row in one walk).
-template <int ALG, bool ENDS>
-__device__ __forceinline__ void align_pair(
-    const int* __restrict__ prof, int prof_stride, int Q,
-    const uint8_t* __restrict__ tgt, int tgt_stride, int len,
-    int2* __restrict__ scr, size_t scr_stride, int go, int ge,
-    int* out_score, int* out_qe, int* out_te) {
-  Track t = track_start<ALG>(Q, go, ge);
-  dp_walk<ALG, ENDS, false>(prof, prof_stride, 0, Q, Q, tgt, tgt_stride, len,
-                            scr, scr_stride, go, ge, nullptr, nullptr,
-                            nullptr, nullptr, t);
-  dp_finish<ALG, ENDS>(t, Q, len, out_score, out_qe, out_te);
 }
 
 // Instantiates KERNEL<ALG, ENDS> for the runtime (algorithm, with_ends)

@@ -52,10 +52,9 @@ __global__ void __launch_bounds__(128) group_kernel(
   const int lane = n - b * lanes;
   const int len = lengths[n];
   Track t = track_start<ALG>(Q, go, ge);
-  dp_walk<ALG, ENDS, false, true>(
-      prof, ALPHA, 0, q_pad, Q, targets + (size_t)b * t_pad * lanes + lane,
-      lanes, len, scratch + k, (size_t)lane_count, go, ge, nullptr, nullptr,
-      nullptr, nullptr, t);
+  dp_walk<ALG, ENDS>(prof, ALPHA, q_pad, Q,
+                     targets + (size_t)b * t_pad * lanes + lane, lanes, len,
+                     scratch + k, (size_t)lane_count, go, ge, t);
   dp_finish<ALG, ENDS, true>(t, Q, len, scores + n, qends + n, tends + n);
 }
 

@@ -4,7 +4,7 @@
 //
 // Replaces: pyopal_tpu/ops/pallas_q8.py::_q8_kernel with narrow=True
 // (l.180-202, 310-313), launched by search_flat_q8(narrow=True) (l.467).
-// Same interface as K2 (q8.cu): row-interleaved int32 profiles (n_groups,
+// K2's (q8.cu) inputs and outputs: row-interleaved int32 profiles (n_groups,
 // 8 * Q_pad, 32), per-slot lengths qv (n_groups, 8, lanes), and (n_groups,
 // n_blocks, 8, lanes) int32 outputs: the score, and -1 in both end planes.
 // The TPU kernel keeps its DP state in bf16, exact on the integers of
@@ -24,13 +24,14 @@
 //   an entry beyond +1024 takes the diagonal past the cap, one below
 //   -1024 takes it below 0, either way as the entry itself would.
 //
-// What bounds it on an H100: operations, as K2 (10 int32 operations per
-// cell), against one byte of target per column of each lane per query.
-// K2's time is set by its int2 H/E scratch (8 bytes a cell, loaded and
-// stored, in device memory at the main path's 1.6 GB); here the scratch is
-// short2, 4 bytes a cell, so its traffic halves.
+// What bounds it on an H100: operations (10 int32 operations per cell),
+// against one byte of target per column of each lane per query.  The
+// one-thread walk's int2 H/E scratch (8 bytes a cell, loaded and stored,
+// in device memory at the main path's 1.6 GB) set the time of K2 before
+// K2 moved to wave.cuh; here the scratch is short2, 4 bytes a cell, so
+// its traffic halves.
 //
-// Design: K2's thread per (group, slot, lane), 128 threads per block,
+// Design: one thread per (group, slot, lane), 128 threads per block,
 // columns outer and rows inner, the row loop bounded by the slot's own
 // length; scratch [group * 8 + slot][row][lane] short2 over the launch's
 // groups and lane range, split within a fixed budget by the wrapper
@@ -98,8 +99,8 @@ __global__ void __launch_bounds__(128) q8_narrow_kernel(
 
 using namespace pyopal;
 
-// K2's arguments; the pass exists for sw score only (algorithm SW,
-// with_ends 0).
+// The launch's groups and lane range with their short2 scratch; the pass
+// exists for sw score only (algorithm SW, with_ends 0).
 extern "C" int pyopal_q8_narrow_launch(
     const int* profs, const int* qv, const uint8_t* flat, const int* lengths,
     const int* row_off, int* scores, int* qends, int* tends,

@@ -26,8 +26,8 @@
 // 128, 16 from 256 rows up, so that one pass covers the tier up to 256
 // rows; a query of 4,096 rows (or a fine tier of 5,120) takes 16 (20)
 // passes through a buffer of H and F per (query, target column) that the
-// wrapper allocates (torch.empty, laid out like the flat targets, as K5's
-// strip boundary is).  A CUDA block is 256 threads, 256 / G lanes of one
+// wrapper allocates (torch.empty, laid out like the flat targets, as K2's
+// and K5's are).  A CUDA block is 256 threads, 256 / G lanes of one
 // query; its first flat row comes from row_off (the wrapper computes it
 // from the step map).  A launch covers a range of queries and a range of
 // lanes, and the wrapper splits a call into as many launches as keep the

@@ -28,7 +28,7 @@
 // 8-byte load and store are what this simple design pays; with one query
 // the launch is latency-bound on each thread's serial chain, as K1 is.
 //
-// Design: K1's thread per (query, target lane), 128 threads per block,
+// Design: one thread per (query, target lane), 128 threads per block,
 // columns outer and rows inner (dp.cuh), with PAD_ROWS; the wrapper splits
 // a call into launches over query and lane ranges within a fixed scratch
 // budget (ops/ragged.py: SCRATCH_BYTES, launch_plan).
@@ -54,11 +54,10 @@ __global__ void __launch_bounds__(128) ragged_v1_kernel(
   const int len = lengths[n];
   const size_t out = (size_t)q * n_lanes + n;
   Track t = track_start<ALG>(Q, go, ge);
-  dp_walk<ALG, ENDS, false, true>(
-      profs + (size_t)q * q_pad * ALPHA, ALPHA, 0, q_pad, Q,
-      flat + (size_t)row_off[b] * lanes + lane, lanes, len,
-      scratch + (size_t)q * q_pad * lane_count + k, (size_t)lane_count, go,
-      ge, nullptr, nullptr, nullptr, nullptr, t);
+  dp_walk<ALG, ENDS>(profs + (size_t)q * q_pad * ALPHA, ALPHA, q_pad, Q,
+                     flat + (size_t)row_off[b] * lanes + lane, lanes, len,
+                     scratch + (size_t)q * q_pad * lane_count + k,
+                     (size_t)lane_count, go, ge, t);
   dp_finish<ALG, ENDS, true>(t, Q, len, scores + out, qends + out,
                              tends + out);
 }

@@ -1,5 +1,7 @@
-// The wavefront walk of K1 (ragged.cu) and K3 (ragged_long.cu): a group
-// of G threads per (query, target) with the query rows in registers.
+// The wavefront walk of K1 (ragged.cu), K2 (q8.cu), K3 (ragged_long.cu)
+// and K5 (ragged_strip.cu): a group of G threads per (query, target) with
+// the query rows in registers.  K2's queries are the (group, slot) pairs
+// of its row-interleaved profiles (a profile row stride of 8 x 32 ints).
 //
 // Why: one thread per target (dp.cuh's dp_walk) gives a single-query
 // launch ~12K threads for a 12,071-sequence database, under a tenth of
@@ -26,8 +28,8 @@
 // - Between passes the last thread writes H and F of the pass's last
 //   row at every column to that buffer (column j at step j + G - 1), and
 //   the next pass's thread 0 reads it (column j at step j): K3 updates
-//   its hb_out/fb_out in place this way; K1 keeps a buffer of its own,
-//   and needs none when the query fits one pass.
+//   its hb_out/fb_out in place this way; K1, K2 and K5 keep a buffer of
+//   their own, and need none when the query fits one pass.
 // - The pass's G * R profile rows are staged in shared memory once per
 //   block (all groups of a block share the query) as [symbol][row] with
 //   go added, interleaved so that a thread reads its R entries for one
@@ -54,7 +56,9 @@
 // desc, row asc) and still loses ties to the last row (dp_finish).  Rows
 // past the walk are neither walked (threads wholly past it skip the
 // cell work) nor tracked (the pass that holds the walk's last row masks
-// them when it ends inside a thread).
+// them when it ends inside a thread).  The PAD_ROWS variant (K5 at
+// negative gaps) walks the profile's pad rows past the query too: sw and
+// ov track them, and row Q - 1, wherever it lies, is read for hw/ov/nw.
 #pragma once
 
 #include <climits>
@@ -86,7 +90,10 @@ __device__ __forceinline__ bool wave_first(int as, int aj, int ai, int bs,
 }
 
 // Stages profile rows [base, base + G * R) of the walk (rows past
-// prof_rows score WAVE_PAD) with go added, for every symbol.
+// prof_rows score WAVE_PAD) with go added, for every symbol.  Profile row
+// i starts at prof + i * PSTRIDE: ALPHA for K1, K3 and K5, 8 * ALPHA for
+// K2's row-interleaved groups.
+template <int PSTRIDE = ALPHA>
 __device__ __forceinline__ void wave_stage(int4* sp,
                                            const int* __restrict__ prof,
                                            int prof_rows, int base, int G,
@@ -98,7 +105,7 @@ __device__ __forceinline__ void wave_stage(int4* sp,
     const int row = idx / ALPHA;  // within the pass
     const int sym = idx - row * ALPHA;
     const int v = base + row < prof_rows
-                      ? __ldg(prof + (size_t)(base + row) * ALPHA + sym)
+                      ? __ldg(prof + (size_t)(base + row) * PSTRIDE + sym)
                       : WAVE_PAD;
     const int t = row / R, rr = row - t * R;
     s[((sym * (R / 4) + (rr >> 2)) * G + t) * 4 + (rr & 3)] = v + go;
@@ -121,6 +128,7 @@ struct WaveThread {
   int pb, pbi, pbj;               // sw: this pass's tracker
   int lb, lbj, cap;               // hw/ov last row, nw terminal (owner)
   int oc, oci;                    // ov last column
+  int rq;                         // PAD_ROWS: row Q - 1 in its thread
 
   __device__ __forceinline__ void load_tiles(int col) {
     const bool in = col < len;
@@ -132,8 +140,10 @@ struct WaveThread {
   }
 };
 
-// Step s of a pass: receive the row above, walk column s - t.
-template <int ALG, bool ENDS, bool MASK>
+// Step s of a pass: receive the row above, walk column s - t.  QROW
+// (PAD_ROWS, the pass that holds row Q - 1): the thread that holds it
+// tracks that row, and the pass's last thread writes the buffer.
+template <int ALG, bool ENDS, bool MASK, bool QROW = false>
 __device__ __forceinline__ void wave_step(WaveThread& w, int s,
                                           const int (&Gi)[WAVE_R],
                                           int (&Go)[WAVE_R],
@@ -221,7 +231,23 @@ __device__ __forceinline__ void wave_step(WaveThread& w, int s,
       }
     }
   }
-  if (w.owner) {
+  if (QROW) {
+    if (w.track_last) {
+      int gq = Go[0];
+#pragma unroll
+      for (int r = 1; r < R; ++r) gq = r == w.rq ? Go[r] : gq;
+      const int hq = gq + go;
+      if ((ALG == HW || ALG == OV) && hq > w.lb) {
+        w.lb = hq;
+        w.lbj = j;
+      }
+      if (ALG == NW && j == w.len - 1) w.cap = hq;
+    }
+    if (w.owner && w.write_rows) {
+      w.wh[(size_t)j * w.stride] = Go[R - 1] + go;
+      w.wf[(size_t)j * w.stride] = f;
+    }
+  } else if (w.owner) {
     // H and F of the pass's (the walk's) last row held by this thread
     int gq = Go[R - 1];
     if (MASK) {
@@ -245,14 +271,14 @@ __device__ __forceinline__ void wave_step(WaveThread& w, int s,
   }
 }
 
-template <int ALG, bool ENDS, bool MASK>
+template <int ALG, bool ENDS, bool MASK, bool QROW = false>
 __device__ __forceinline__ void wave_pass(WaveThread& w, int nsteps,
                                           int (&GA)[WAVE_R],
                                           int (&GB)[WAVE_R],
                                           int (&E)[WAVE_R]) {
   for (int s = 0; s < nsteps; s += 2) {  // nsteps is even
-    wave_step<ALG, ENDS, MASK>(w, s, GA, GB, E);
-    wave_step<ALG, ENDS, MASK>(w, s + 1, GB, GA, E);
+    wave_step<ALG, ENDS, MASK, QROW>(w, s, GA, GB, E);
+    wave_step<ALG, ENDS, MASK, QROW>(w, s + 1, GB, GA, E);
   }
 }
 
@@ -268,10 +294,17 @@ __device__ __forceinline__ void wave_pass(WaveThread& w, int nsteps,
 // pb_h/pb_f: the buffer between passes, laid out like tgt and updated in
 //   place (column j read at step j, written at step j + G - 1; no
 //   __restrict__, so no load moves past a store).  With SEG_OUT (K3) it
-//   also receives H and F of the walk's last row; without it (K1) the
-//   last pass writes nothing.
+//   also receives H and F of the walk's last row; without it (K1, K2,
+//   K5) the last pass writes nothing.
+// PSTRIDE: ints from one profile row to the next (wave_stage).
+// PAD_ROWS (K5 at negative gaps): the walk's rows go past the query's Q
+//   rows (profile rows that score PAD_SCORE) and count for sw's best cell
+//   and ov's last column, while hw, ov and nw read the last row at row
+//   Q - 1, in whichever pass and thread hold it; rows must then be a
+//   multiple of WAVE_R.
 // All G threads of a group return the same tracker.
-template <int ALG, bool ENDS, bool SEG_OUT>
+template <int ALG, bool ENDS, bool SEG_OUT, int PSTRIDE = ALPHA,
+          bool PAD_ROWS = false>
 __device__ __forceinline__ void wave_walk(
     int4* sp, const int* __restrict__ prof, int prof_rows, int row0,
     int rows, int Q, const uint8_t* __restrict__ tgt, int stride, int len,
@@ -285,6 +318,12 @@ __device__ __forceinline__ void wave_walk(
   const int last_base = n_pass > 0 ? (n_pass - 1) * GR : 0;
   const int own_last = rows > 0 ? (rows - 1 - last_base) / R : 0;
   const bool has_last = rows > 0 && row0 + rows == Q;
+  // PAD_ROWS: row Q - 1 (qlast of the walk) lies in pass pass_q, thread
+  // own_q
+  const int qlast = Q - 1 - row0;
+  const bool has_q = PAD_ROWS && 0 <= qlast && qlast < rows;
+  const int pass_q = has_q ? qlast / GR : -1;
+  const int own_q = has_q ? qlast % GR / R : 0;
   const int wlen = __reduce_max_sync(WAVE_FULL, len);
   int nsteps = wlen > 0 ? wlen + G - 1 : 0;
   nsteps += nsteps & 1;
@@ -310,14 +349,16 @@ __device__ __forceinline__ void wave_walk(
     const int base = p * GR;
     const bool final_pass = p == n_pass - 1;
     __syncthreads();  // every group is done with the previous profile
-    wave_stage(sp, prof, prof_rows, base, G, go);
+    wave_stage<PSTRIDE>(sp, prof, prof_rows, base, G, go);
     __syncthreads();
     w.q0 = row0 + base + t * R;
     w.nv = min(max(row0 + rows - w.q0, 0), R);
     w.rl = final_pass ? (rows - 1 - base) % R : R - 1;
     w.owner = final_pass ? t == own_last : t == G - 1;
     w.write_rows = final_pass ? SEG_OUT : true;
-    w.track_last = final_pass && has_last;
+    w.track_last =
+        PAD_ROWS ? p == pass_q && t == own_q : final_pass && has_last;
+    w.rq = qlast % R;
     w.top = base == 0 && row0 == 0;
     w.bh = base == 0 ? hb_in : pb_h;
     w.bf = base == 0 ? fb_in : pb_f;
@@ -342,7 +383,9 @@ __device__ __forceinline__ void wave_walk(
     w.th_cur = w.th_next;
     w.tf_cur = w.tf_next;
     w.load_tiles(G + t);
-    if (final_pass && rows % R != 0) {
+    if (PAD_ROWS && p == pass_q) {
+      wave_pass<ALG, ENDS, false, true>(w, nsteps, GA, GB, E);
+    } else if (final_pass && rows % R != 0) {
       wave_pass<ALG, ENDS, true>(w, nsteps, GA, GB, E);
     } else {
       wave_pass<ALG, ENDS, false>(w, nsteps, GA, GB, E);
@@ -393,11 +436,12 @@ __device__ __forceinline__ void wave_walk(
       trk.ci = w.oci;
     }
   }
+  const int own = PAD_ROWS ? own_q : own_last;  // holds row Q - 1
   if (ALG == HW || ALG == OV) {
-    trk.best = __shfl_sync(WAVE_FULL, w.lb, own_last, G);
-    trk.bj = __shfl_sync(WAVE_FULL, w.lbj, own_last, G);
+    trk.best = __shfl_sync(WAVE_FULL, w.lb, own, G);
+    trk.bj = __shfl_sync(WAVE_FULL, w.lbj, own, G);
   }
-  if (ALG == NW) trk.cap = __shfl_sync(WAVE_FULL, w.cap, own_last, G);
+  if (ALG == NW) trk.cap = __shfl_sync(WAVE_FULL, w.cap, own, G);
 }
 
 }  // namespace pyopal

@@ -12,13 +12,16 @@ row-interleaved profiles, per-slot lengths ``qv`` and per-group row
 bounds ``maxq``, over 256- or 512-lane packs, giving ``(n_groups,
 n_blocks, QB, lanes)`` outputs, so the engine's `plan_tier_launches` and
 q8 assembly are unchanged.  On the GPU the group of 8 has no hardware
-meaning: each (group, slot, lane) is one thread whose row loop ends at
-its own query length.
+meaning: K2 walks each (group, slot) as one query of K1's wavefront walk
+(``csrc/wave.cuh``: a group of threads per (group, slot, target lane),
+its rows in registers, the walk ending at the slot's own length); K7
+gives each (group, slot, lane) one thread.
 
 As in `pyopal_tpu_torch.ops.ragged`: `search_flat_q8` launches the
 kernel for CUDA tensors (counted in `launches` by kernel) and takes the
 plain version `search_flat_q8_reference` (K2's, or with ``narrow``
-K7's) for CPU tensors only (counted in `plain_calls`).
+K7's) for CPU tensors only (counted in `plain_calls`).  `wave_reference`
+is K2 as its kernel computes it, for the tests.
 """
 
 from __future__ import annotations
@@ -31,9 +34,15 @@ from .ragged import (
     ALGO_CODES,
     ALPHA,
     PAD_SCORE,
+    WAVE_R,
     check_flat,
     launch_plan,
     profile_qpad,
+    wave_buffer,
+    wave_finish,
+    wave_group,
+    wave_start,
+    wave_walk_reference,
 )
 
 QB = 8  # queries per group
@@ -102,9 +111,10 @@ def search_flat_q8(
 ):
     """All query groups x the whole flat-packed database.
 
-    One kernel launch, or several where one launch's H/E scratch would
-    exceed `ragged.SCRATCH_BYTES` (`ragged.launch_plan`); each adds one
-    to ``launches["q8"]`` (K2) or, with ``narrow``,
+    One kernel launch, or several where one launch's scratch (K2: its
+    pass buffer, at tiers beyond one pass of its walk; K7: its H/E
+    scratch) would exceed `ragged.SCRATCH_BYTES` (`ragged.launch_plan`);
+    each adds one to ``launches["q8"]`` (K2) or, with ``narrow``,
     ``launches["q8_narrow"]`` (K7).
 
     ``qv`` must be constant along lanes (as `make_profiles_q8_host`
@@ -165,21 +175,24 @@ def search_flat_q8(
         torch.empty((n_g, n_blocks, QB, lanes), dtype=torch.int32, device=dev)
         for _ in range(3)
     ]
-    # H/E scratch: K2's int2, 8 bytes a cell; K7's short2, 4 bytes
-    dtype, cell_bytes = (torch.int16, 4) if narrow else (torch.int32, 8)
-    units, n_lanes, chunks = launch_plan(
-        n_g, QB * q_pad, n_blocks * lanes, cell_bytes=cell_bytes
-    )
-    scratch = torch.empty(
-        (units, QB * q_pad, n_lanes, 2), dtype=dtype, device=dev
-    )
+    if narrow:  # K7's short2 H/E scratch, 4 bytes a cell
+        units, n_lanes, chunks = launch_plan(
+            n_g, QB * q_pad, n_blocks * lanes, cell_bytes=4
+        )
+        scratch = torch.empty(
+            (units, QB * q_pad, n_lanes, 2), dtype=torch.int16, device=dev
+        )
+        extra = ()
+    else:  # K2's pass buffer, as K1's, then the flat rows and group size
+        chunks, scratch = wave_buffer(n_g, QB, q_pad, flat_targets, n_blocks)
+        extra = (flat_targets.shape[0], wave_group(q_pad))
     for g0, g1, n0, n1 in chunks:  # one stream: launches reuse scratch
         _cuda.launch(
             name,
             profs[g0:g1], qv[g0:g1], flat_targets, lengths, row_off,
             *(o[g0:g1] for o in outs), scratch,
             g1 - g0, q_pad, n_blocks, lanes, n0, n1 - n0, int(go), int(ge),
-            ALGO_CODES[algorithm], int(bool(with_ends)),
+            ALGO_CODES[algorithm], int(bool(with_ends)), *extra,
         )
         launches[name] += 1
     return tuple(outs)
@@ -236,3 +249,35 @@ def search_flat_q8_reference(
         for x in (s, qe, te)
     )
 
+
+def wave_reference(profs, qv, maxq, flat_targets, lengths, bos, cos, los,
+                   go, ge, algorithm, with_ends, chunk=64, G=None, R=WAVE_R):
+    """K2 as its CUDA kernel computes it: `ragged.wave_walk_reference` for
+    every (group, slot, target lane), ``G`` threads of ``R`` rows each
+    (``G``: the kernel's `ragged.wave_group` of the tier by default),
+    reading slot ``s``'s row ``i`` at row ``QB * i + s`` of its group's
+    profile.  Same inputs and outputs as `search_flat_q8`; CPU tensors
+    only.  The tests hold it against the JAX package; no call path uses
+    it."""
+    del maxq, cos, los
+    n_g = profs.shape[0]
+    q_pad = profs.shape[1] // QB
+    n_blocks, _, lanes = lengths.shape
+    N = n_blocks * lanes
+    G = wave_group(q_pad, R) if G is None else G
+    lens = lengths.reshape(-1).to(torch.int64).repeat(n_g * QB)
+    tgt = sweep.columns_from_flat(flat_targets, lengths, bos, chunk)
+    tgt = tgt.to(torch.int64).repeat(1, n_g * QB)  # walk = slot * N + lane
+    Q = torch.clamp(qv[:, :, 0].reshape(-1).to(torch.int64), max=q_pad)
+    Q = Q.repeat_interleave(N)
+    buf = torch.zeros(tgt.shape, dtype=torch.int64)
+    trk = wave_walk_reference(
+        profs.reshape(-1), q_pad, torch.arange(n_g * QB).repeat_interleave(N),
+        0, Q, Q, tgt, lens, buf, buf, buf.clone(), buf.clone(), go, ge,
+        algorithm, with_ends, wave_start(Q, go, ge, algorithm), G, R, False,
+        interleave=QB,
+    )
+    out = wave_finish(trk, Q, lens, algorithm, with_ends, False)
+    return tuple(
+        x.reshape(n_g, QB, n_blocks, lanes).permute(0, 2, 1, 3).contiguous()
+        for x in out)

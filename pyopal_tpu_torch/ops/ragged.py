@@ -15,14 +15,16 @@ the reference does (l.1091-1107):
   both modes (``csrc/ragged_v1.cu``);
 - anything else raises `ValueError`, as the reference does.
 
-K4 and K5 walk all ``Q_pad`` profile rows, pad rows included, and K4
-fills the score-mode end planes from untracked positions, as their TPU
-kernels do (`sweep.sweep_all_rows`); K1 stops at the query's length and
-writes -1 planes in score mode.  Each kernel is hand-written CUDA C++,
-its design described in its source: K4 and K5 give one thread to each
-query x target lane (``csrc/dp.cuh``); K1 gives each a group of
-`wave_group` threads with 16 query rows each in registers, walking the
-target as a wavefront (``csrc/wave.cuh``, shared with K3).
+K4 and K5 answer over all ``Q_pad`` profile rows, pad rows included,
+and K4 fills the score-mode end planes from untracked positions, as
+their TPU kernels do (`sweep.sweep_all_rows`); K1 stops at the query's
+length and writes -1 planes in score mode.  Each kernel is hand-written
+CUDA C++, its design described in its source: K4 gives one thread to
+each query x target lane (``csrc/dp.cuh``); K1 and K5 give each a group
+of `wave_group` threads with 16 query rows each in registers, walking
+the target as a wavefront (``csrc/wave.cuh``, shared with K2 and K3).
+K5 walks the pad rows only where a gap is negative: with both gaps >= 0
+no path through a pad row can raise a score (``csrc/ragged_strip.cu``).
 
 Four things live here:
 
@@ -34,9 +36,10 @@ Four things live here:
   function, routed alike: a column sweep (`pyopal_tpu_torch.ops.sweep`)
   for K1, `search_flat_v1_reference` for K4 and
   `search_flat_strip_reference` for K5.
-- `wave_reference`, K1 as its kernel computes it (`wave_walk_reference`,
-  the walk's CPU emulation, also K3's): for the tests, which hold it
-  against the JAX package at small group sizes; no call path runs it.
+- `wave_reference` and `wave_strip_reference`, K1 and K5 as their
+  kernels compute them (`wave_walk_reference`, the walk's CPU emulation,
+  also K2's and K3's): for the tests, which hold them against the JAX
+  package at small group sizes; no call path runs them.
 - the host-side profiles and tier helpers shared with the engine,
   including the fine tiers of single long queries (`fine_qpad`,
   `supports_fine`, ``pallas_ragged.py`` l.113-152), which K1 takes in
@@ -67,7 +70,8 @@ RAGGED_MAX_QPAD = 2048
 #: ``RAGGED_MAX_QPAD_STRIP``); single long queries go beyond it at fine
 #: tiers (`supports_fine`)
 RAGGED_MAX_QPAD_STRIP = 4096
-#: K5's strip height (reference ``STRIP``; ``csrc/ragged_strip.cu``)
+#: the reference K5's strip height (``STRIP``): one pass of the port's
+#: K5 walk (``csrc/ragged_strip.cu``, G x R = 16 x 16 rows)
 STRIP = 256
 #: smallest query tier that K5 takes (reference ``STRIP_MIN_QPAD``)
 STRIP_MIN_QPAD = 512
@@ -75,8 +79,9 @@ LANES = 128
 
 ALGO_CODES = {"sw": 0, "nw": 1, "hw": 2, "ov": 3}
 #: largest scratch (bytes) one kernel launch may use: the H/E scratch of
-#: K2 and K4-K7, K1's pass buffer at tiers of several passes; a call that
-#: needs more is split into launches over query and lane ranges
+#: K4, K6 and K7, the pass buffer of K1, K2 and K5 at tiers of several
+#: passes; a call that needs more is split into launches over query and
+#: lane ranges
 SCRATCH_BYTES = 2 << 30
 
 #: kernel launches made by `search_flat` on CUDA tensors, by kernel
@@ -262,8 +267,8 @@ def search_flat(
 
     Runs the kernel `flat_route` names: K1 under ``safe_pad``, else K5
     for score-only calls at tiers of `STRIP_MIN_QPAD` rows and more, else
-    K4.  One kernel launch, or several where one launch's scratch (K1:
-    its pass buffer, at tiers beyond one pass) would exceed
+    K4.  One kernel launch, or several where one launch's scratch (K1
+    and K5: their pass buffer, at tiers beyond one pass) would exceed
     `SCRATCH_BYTES` (`launch_plan`); each adds one to the kernel's count
     in `launches`.
 
@@ -321,29 +326,14 @@ def search_flat(
         torch.empty((n_q, n_blocks, lanes), dtype=torch.int32, device=dev)
         for _ in range(3)
     ]
-    # a launch's scratch per (query, lane): K4's H/E rows; K5's strip of
-    # them and the H/F boundary of the lane's columns (total_rows /
-    # n_blocks on average); K1's pass buffer, H and F of the lane's
-    # columns, none when the tier fits one pass of its walk
-    rows = flat_targets.shape[0]
-    wave, strip = route == "ragged", route == "ragged_strip"
-    scr_rows = 0 if wave else STRIP if strip else q_pad
-    cols = (wave_buffer_rows(q_pad, rows, n_blocks) if wave
-            else -(-rows // max(n_blocks, 1)) if strip else 0)
-    if scr_rows + cols:
-        units, n_lanes, chunks = launch_plan(
-            n_q, scr_rows + cols, n_blocks * lanes)
-    else:
-        units, n_lanes, chunks = 0, 0, [(0, n_q, 0, n_blocks * lanes)]
-    scratch = torch.empty(
-        (units, scr_rows, n_lanes, 2), dtype=torch.int32, device=dev
-    ) if scr_rows else 0
-    boundary = torch.empty(
-        (units, 2, rows, lanes), dtype=torch.int32, device=dev
-    ) if cols else 0
-    extra = (boundary, rows) if strip else ()
-    if wave:  # the pass buffer in the scratch's place, then the group size
-        scratch, extra = boundary, (rows, wave_group(q_pad))
+    if route == "ragged_v1":  # K4's H/E scratch rows per (query, lane)
+        units, n_lanes, chunks = launch_plan(n_q, q_pad, n_blocks * lanes)
+        scratch = torch.empty(
+            (units, q_pad, n_lanes, 2), dtype=torch.int32, device=dev)
+        extra = ()
+    else:  # K1's and K5's pass buffer, then the flat rows and group size
+        chunks, scratch = wave_buffer(n_q, 1, q_pad, flat_targets, n_blocks)
+        extra = (flat_targets.shape[0], wave_group(q_pad))
     for q0, q1, n0, n1 in chunks:  # one stream: launches reuse scratch
         _cuda.launch(
             route,
@@ -470,6 +460,25 @@ def wave_buffer_rows(q_pad: int, flat_rows: int, n_blocks: int) -> int:
     return -(-flat_rows // max(n_blocks, 1))
 
 
+def wave_buffer(n_units, slots, q_pad, flat_targets, n_blocks):
+    """The pass buffer of a wavefront-walk call (K1, K2, K5) and its
+    launches: ``(chunks, buffer)``.
+
+    A unit (a query, or a q8 group of ``slots`` queries) needs H and F
+    at every target column of each lane (``(slots, 2, total_rows,
+    lanes)`` int32, laid out like the flat targets) when its ``q_pad``
+    rows take several passes of the walk; `launch_plan` then splits the
+    call within `SCRATCH_BYTES`.  One launch and no buffer (``0``, a null
+    pointer to the kernel) when the tier fits one pass."""
+    rows, lanes = flat_targets.shape
+    cols = wave_buffer_rows(q_pad, rows, n_blocks)
+    if not cols:
+        return [(0, n_units, 0, n_blocks * lanes)], 0
+    units, _, chunks = launch_plan(n_units, slots * cols, n_blocks * lanes)
+    return chunks, torch.empty((units, slots, 2, rows, lanes),
+                               dtype=torch.int32, device=flat_targets.device)
+
+
 def _wave_first(a, b):
     """Where tracker ``a`` (score, column, row) comes before ``b``: score
     desc, column asc, row asc."""
@@ -479,7 +488,8 @@ def _wave_first(a, b):
 
 def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
                         tgt, lens, hb_in, fb_in, pbuf_h, pbuf_f, go, ge,
-                        algorithm, with_ends, trk, G, R, seg_out):
+                        algorithm, with_ends, trk, G, R, seg_out,
+                        interleave=1, pad_rows=False):
     """CPU emulation of ``csrc/wave.cuh``'s `wave_walk` over N walks.
 
     It mirrors the kernel: passes of ``G * R`` rows; within a pass the
@@ -491,11 +501,18 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
     that holds it), joined per pass, across threads by xor butterfly and
     with the incoming tracker by (score desc, column asc, row asc); hw/ov
     and nw read the last row in the owning thread; rows past the walk are
-    masked.  Vectorized over walks and threads in torch (int64).
+    masked.  With ``pad_rows`` (the kernel's PAD_ROWS, K5 at negative
+    gaps) the walk's rows go past the query: sw and ov track them, and
+    row ``Q - 1`` is read in whichever pass and thread hold it (``rows``
+    a multiple of ``R``).  Vectorized over walks and threads in torch
+    (int64).
 
     Arguments (N walks, T columns):
         prof_flat: ``(n_prof * prof_rows * 32,)`` profile entries;
-            ``walk_prof`` (N,) names each walk's profile.
+            ``walk_prof`` (N,) names each walk's profile.  With
+            ``interleave`` k (K2's groups), profiles come in groups of k
+            whose rows interleave: row i of profile p is row
+            ``k * i + p % k`` of group ``p // k``.
         row0: global query row of walk row 0 (an int); ``rows`` / ``Q``:
             ``(N,)`` rows walked and query lengths.
         tgt: ``(T, N)`` symbols; ``lens``: ``(N,)`` target lengths.
@@ -535,6 +552,13 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
     last_base = torch.clamp(n_pass - 1, min=0) * GR
     own_last = torch.where(rows > 0, (rows - 1 - last_base) // R, 0)
     has_last = (rows > 0) & (row0 + rows == Q)
+    # pad_rows: row Q - 1 (qlast of the walk) lies in pass pass_q,
+    # thread own_q, row rq of it
+    qlast = Q - 1 - row0
+    has_q = (rows > 0) & (qlast >= 0) & (qlast < rows)
+    pass_q = torch.where(has_q, qlast // GR, -1)
+    own_q = torch.where(has_q, qlast % GR // R, 0)
+    rq = torch.where(has_q, qlast % R, 0)
     best_in, cap_in, bi_in, bj_in, ci_in = (x.to(i64) for x in trk)
 
     zero = torch.zeros((G, N), dtype=i64)
@@ -553,7 +577,12 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
         owner_t = torch.where(final, (rows - 1 - base) // R, G - 1)
         owner = t_ == owner_t  # (G, N)
         write_rows = ~final if not seg_out else part
-        track_last = final & has_last
+        if pad_rows:  # the thread that holds row Q - 1 tracks it
+            track = (t_ == own_q) & (p == pass_q)
+            trk_rl = rq
+        else:  # the pass's owner tracks the walk's last row
+            track = owner & final & has_last
+            trk_rl = rl
         top = base == 0 and row0 == 0
         bh, bf = (hb_in, fb_in) if base == 0 else (pbuf_h, pbuf_f)
         qr = q0[:, None, :] + r_[None, :, None]  # (G, R, N) global rows
@@ -566,8 +595,10 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
         # profile row of each (thread, row, walk): walk-relative rows
         # past the profile score PAD_SCORE, as the kernel stages them
         prow = qr - row0
-        rowi = torch.where(prow < prof_rows, walk_prof * prof_rows + prow,
-                           pad_row)
+        rowi = torch.where(
+            prow < prof_rows,
+            (walk_prof // interleave * prof_rows + prow) * interleave
+            + walk_prof % interleave, pad_row)
         for s in range(nsteps):
             if top:
                 gtop = torch.full((N,), (-(go + s * ge) if pen_row else 0)
@@ -626,13 +657,13 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
             gq = Gn.gather(1, rl[None, None].expand(G, 1, N))[:, 0]
             hq = gq + go
             own = act & owner
+            ht = Gn.gather(1, trk_rl[None, None].expand(G, 1, N))[:, 0] + go
             if hw_ov:
-                upd = own & track_last & (hq > lb)
-                lb = torch.where(upd, hq, lb)
+                upd = act & track & (ht > lb)
+                lb = torch.where(upd, ht, lb)
                 lbj = torch.where(upd, j, lbj)
             if nw:
-                cap = torch.where(own & track_last & (j == lens - 1), hq,
-                                  cap)
+                cap = torch.where(act & track & (j == lens - 1), ht, cap)
             wr = own & write_rows
             if bool(wr.any()):
                 tt, nn = wr.nonzero(as_tuple=True)
@@ -674,17 +705,18 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
             best, bi, bj = (torch.where(take, a, b) for a, b in
                             ((sb[0], best_in), (sbi[0], bi_in),
                              (sbj[0], bj_in)))
+    holder = own_q if pad_rows else own_last  # the thread of row Q - 1
     if ov:
         take = (oc[0] > cap_in) | ((oc[0] == cap_in) & (oci[0] < ci_in))
         cap = torch.where(take, oc[0], cap_in)
         ci = torch.where(take, oci[0], ci_in)
     elif nw:
-        cap = cap.gather(0, own_last[None])[0]
+        cap = cap.gather(0, holder[None])[0]
     else:
         cap = cap_in
     if hw_ov:
-        best = lb.gather(0, own_last[None])[0]
-        bj = lbj.gather(0, own_last[None])[0]
+        best = lb.gather(0, holder[None])[0]
+        bj = lbj.gather(0, holder[None])[0]
     return torch.stack([best, cap, bi, bj, ci])
 
 
@@ -739,12 +771,15 @@ def wave_reference(
     chunk=64,
     G=None,
     R=WAVE_R,
+    pad_rows=False,
 ):
     """K1 as its CUDA kernel computes it: `wave_walk_reference` for every
     (query, target lane), ``G`` threads of ``R`` rows each (``G``: the
     kernel's `wave_group` of the tier by default).  Same inputs and
-    outputs as `search_flat` under ``safe_pad``; CPU tensors only.  The
-    tests hold it against the JAX package; no call path uses it."""
+    outputs as `search_flat` under ``safe_pad``; CPU tensors only.
+    With ``pad_rows`` every walk covers all ``Q_pad`` rows
+    (`wave_strip_reference`).  The tests hold it against the JAX
+    package; no call path uses it."""
     del cos, los
     n_q, q_pad, _ = profs.shape
     n_blocks, _, lanes = lengths.shape
@@ -758,10 +793,24 @@ def wave_reference(
     lens = lens.repeat(n_q)
     walk_prof = torch.arange(n_q).repeat_interleave(N)
     buf = torch.zeros((T, n_q * N), dtype=torch.int64)
+    rows = torch.full_like(Q, q_pad) if pad_rows else Q
     trk = wave_walk_reference(
-        profs.reshape(-1), q_pad, walk_prof, 0, Q, Q, tgt, lens, buf, buf,
+        profs.reshape(-1), q_pad, walk_prof, 0, rows, Q, tgt, lens, buf, buf,
         buf.clone(), buf.clone(), go, ge, algorithm, with_ends,
-        wave_start(Q, go, ge, algorithm), G, R, False,
+        wave_start(Q, go, ge, algorithm), G, R, False, pad_rows=pad_rows,
     )
     out = wave_finish(trk, Q, lens, algorithm, with_ends, False)
     return tuple(x.reshape(n_q, n_blocks, lanes) for x in out)
+
+
+def wave_strip_reference(profs, qlens, flat_targets, lengths, bos, cos, los,
+                         go, ge, algorithm, chunk=64, G=None, R=WAVE_R):
+    """K5 as its CUDA kernel computes it: score only, K1's walk over rows
+    ``[0, Q)`` when both gaps are >= 0, else over every ``Q_pad`` row with
+    the pad-row walk.  Same inputs and outputs as `search_flat` without
+    ``safe_pad`` at K5's tiers; CPU tensors only.  The tests hold it
+    against the plain version and the JAX package; no call path uses
+    it."""
+    return wave_reference(
+        profs, qlens, flat_targets, lengths, bos, cos, los, go, ge,
+        algorithm, False, chunk, G, R, pad_rows=go < 0 or ge < 0)

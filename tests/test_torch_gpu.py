@@ -84,6 +84,56 @@ def test_q8_kernel_matches_plain(dev, algo, with_ends):
     assert q8.launches == before
 
 
+def _q8_args(dev, qls, algo, with_ends, seqs, queries=None, lanes=512):
+    """K2 inputs: ``qls`` queries (random unless given) in q8 groups over
+    ``seqs``."""
+    rng = np.random.default_rng(4)
+    if queries is None:
+        queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
+    fp = packing.pack_sequences_flat(seqs, lanes=lanes)
+    groups = q8.plan_groups(qls)
+    arrays = q8.make_profiles_q8_host(queries, S, groups, lanes=lanes)
+    return (*(torch.from_numpy(a).to(dev) for a in arrays),
+            *_flat(fp, dev), 3, 1, algo, with_ends, fp.chunk)
+
+
+#: K2's query lengths by tier: around a thread's 16 rows and a pass (64,
+#: 128, 256 rows at G = 4, 8, 16), and at 512 two passes; each a full
+#: group and a short one (empty slots)
+Q8_TIERS = {
+    64: [16, 17, 63, 64, 1, 15, 33, 48, 7, 64, 2],
+    128: [65, 127, 128, 100, 66, 80, 90, 120, 128],
+    256: [255, 256, 129, 200, 240, 130, 160, 250, 256, 31],
+    512: [512, 257, 300, 400, 511, 260, 333, 444, 100, 7],
+}
+
+
+@pytest.mark.parametrize("tie_heavy", [False, True])
+@pytest.mark.parametrize("tier", sorted(Q8_TIERS))
+def test_q8_kernel_tiers_match_plain(dev, tier, tie_heavy):
+    """K2 at tiers 64 to 512 (one pass of G = 4, 8, 16 threads, then two
+    passes through its buffer), every algorithm and mode, a short last
+    group; on random targets, and on repeated-motif ones with motif
+    queries (equal maxima in many columns and slots)."""
+    rng = np.random.default_rng(tier)
+    qls = Q8_TIERS[tier]
+    if tie_heavy:
+        seqs, motif = _motif_targets(rng, 300)
+        queries = [np.resize(motif, n).astype(np.uint8) for n in qls]
+    else:
+        seqs = [rng.integers(0, 20, n).astype(np.uint8)
+                for n in LENGTHS * 30]
+        queries = None
+    for algo in ("nw", "hw", "ov", "sw"):
+        for with_ends in (False, True):
+            args = _q8_args(dev, qls, algo, with_ends, seqs, queries)
+            assert args[0].shape[1] == 8 * tier
+            before = q8.launches["q8"]
+            _equal(q8.search_flat_q8(*args),
+                   q8.search_flat_q8_reference(*args))
+            assert q8.launches["q8"] == before + 1
+
+
 @pytest.mark.parametrize("split", ["lanes", "units"])
 @pytest.mark.parametrize("kernel", ["ragged", "q8"])
 def test_kernel_split_by_scratch_budget_matches_plain(
@@ -91,9 +141,10 @@ def test_kernel_split_by_scratch_budget_matches_plain(
 ):
     """A scratch budget too small for one launch splits the call into
     launches over query (group) and lane ranges; the result is the same.
-    K1's per-launch bytes are its pass buffer (H and F per query and
-    target column), which a tier of several passes needs: 600 residues at
-    the 1024 tier, four passes of 256 rows."""
+    The per-launch bytes of K1 and K2 are their pass buffer (H and F per
+    query, or per group slot, and target column), which a tier of several
+    passes needs: K1 600 residues at the 1024 tier, four passes of 256
+    rows; K2 two groups at the 512 tier, two passes."""
     rng = np.random.default_rng(5)
     seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in LENGTHS * 30]
     if kernel == "ragged":
@@ -111,18 +162,14 @@ def test_kernel_split_by_scratch_budget_matches_plain(
             args[0].shape[1], fp.flat_targets.shape[0], fp.n_blocks)
         assert unit_rows > 0
     else:
-        qls = [64, 1, 40, 63, 7, 50, 29, 33, 21, 3, 64, 12, 9, 17]
-        queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
+        qls = Q8_TIERS[512]
         fp = packing.pack_sequences_flat(seqs, lanes=512)
-        groups = q8.plan_groups(qls)
-        arrays = q8.make_profiles_q8_host(queries, S, groups, lanes=512)
-        args = (
-            *(torch.from_numpy(a).to(dev) for a in arrays),
-            *_flat(fp, dev), 3, 1, "sw", True, fp.chunk,
-        )
+        args = _q8_args(dev, qls, "sw", True, seqs)
         mod, fn, plain, n_units = q8, q8.search_flat_q8, \
-            q8.search_flat_q8_reference, len(groups)
-        unit_rows = args[0].shape[1]
+            q8.search_flat_q8_reference, args[0].shape[0]
+        unit_rows = q8.QB * ragged.wave_buffer_rows(
+            512, fp.flat_targets.shape[0], fp.n_blocks)
+        assert unit_rows > 0
     n_lanes = fp.lengths.size
     lanes_per_unit = 128 if split == "lanes" else n_lanes
     monkeypatch.setattr(ragged, "SCRATCH_BYTES", 8 * unit_rows * lanes_per_unit)
@@ -296,18 +343,44 @@ def test_ragged_strip_kernel_matches_plain(dev, algo, gaps):
     assert (out[1] == -1).all() and (out[2] == -1).all()
 
 
+#: K5's query lengths by tier: around a 256-row pass and at Q = Q_pad
+STRIP_TIERS = {512: [512, 255, 256, 257], 1024: [1024, 255, 257, 770],
+               4096: [4096, 2563, 256]}
+
+
+@pytest.mark.parametrize("gaps", [(3, 1), (1, 3), (0, 0), (-1, 2)])
+@pytest.mark.parametrize("tier", sorted(STRIP_TIERS))
+def test_ragged_strip_kernel_pass_edges_match_plain(dev, tier, gaps):
+    """K5 at tiers 512, 1024 and 4096, every algorithm, queries ending on
+    either side of a pass and at the tier: with gaps >= 0 the walk stops
+    at the pass that holds row Q - 1, with a negative gap it walks every
+    row (the pad rows raise sw's and ov's score there)."""
+    for algo in ("nw", "hw", "ov", "sw"):
+        args = _v1_args(dev, 18, STRIP_TIERS[tier], algo, False,
+                        go=gaps[0], ge=gaps[1], n_seqs=3)
+        assert args[0].shape[1] == tier
+        before = ragged.launches["ragged_strip"]
+        out = ragged.search_flat(*args)
+        _equal(out, ragged.search_flat_reference(*args))
+        assert ragged.launches["ragged_strip"] == before + 1
+
+
 @pytest.mark.parametrize("algo, with_ends, tier", [
     ("sw", True, 64), ("ov", False, 64), ("nw", True, 256),
-    ("hw", False, 512), ("ov", False, 1024),
+    ("hw", False, 512), ("ov", False, 1024), ("sw", False, 4096),
 ])
 def test_symbol_31_as_a_real_letter_matches_plain(dev, algo, with_ends, tier):
     """A random 32 x 32 matrix, targets and queries over all 32 symbols
-    (symbol 31 too): K4 (tiers 64, 256) and K5 (512, 1024)."""
+    (symbol 31 too): K4 (tiers 64, 256) and K5 (512, 1024, and 4096 at a
+    negative gap, which walks every row)."""
     rng = np.random.default_rng(31)
     m = rng.integers(-6, 7, (32, 32))
     m = ((m + m.T) // 2).astype(np.int32)
-    qls = {64: [40, 60], 256: [200], 512: [300], 1024: [1000]}[tier]
-    args = _v1_args(dev, 15, qls, algo, with_ends, alphabet=32, matrix=m)
+    qls = {64: [40, 60], 256: [200], 512: [300], 1024: [1000],
+           4096: [2563]}[tier]
+    go, ge = (-1, 2) if tier == 4096 else (3, 1)
+    args = _v1_args(dev, 15, qls, algo, with_ends, alphabet=32, matrix=m,
+                    go=go, ge=ge)
     _equal(ragged.search_flat(*args), ragged.search_flat_reference(*args))
 
 
@@ -321,8 +394,10 @@ def test_v1_kernels_split_by_scratch_budget_match_plain(dev, kernel,
     args = _v1_args(dev, 16, qls, "sw", ends, n_seqs=30)
     n_lanes = args[3].numel()
     rows = args[2].shape[0]
+    # K4: its H/E rows; K5: its pass buffer, H and F of the lane's columns
     unit_rows = (args[0].shape[1] if ends
-                 else ragged.STRIP + -(-rows // args[3].shape[0]))
+                 else ragged.wave_buffer_rows(args[0].shape[1], rows,
+                                              args[3].shape[0]))
     monkeypatch.setattr(ragged, "SCRATCH_BYTES", 8 * unit_rows * 128)
     before = ragged.launches[kernel]
     _equal(ragged.search_flat(*args), ragged.search_flat_reference(*args))

@@ -1,20 +1,29 @@
-"""K1's and K3's wavefront walk, emulated on the CPU, against `pyopal_tpu`.
+"""The wavefront walk of K1, K2, K3 and K5, emulated on the CPU, against
+`pyopal_tpu`.
 
-The CUDA kernels of K1 (``csrc/ragged.cu``) and K3 (``csrc/ragged_long.cu``)
-walk each (query, target) with a group of G threads, R query rows each,
-in passes of G * R rows (``csrc/wave.cuh``).  The kernels run only on the
-card; their CPU emulations, `ragged.wave_reference` and
-`ragged_long.wave_segment_reference`, mirror the passes, the per-thread
-row blocks, the per-thread trackers and their merge.  Here they run at a
-small G and R (4 and 2: passes of 8 rows) so that a short query crosses
-threads and passes, and must equal
+The CUDA kernels of K1 (``csrc/ragged.cu``), K2 (``csrc/q8.cu``), K3
+(``csrc/ragged_long.cu``) and K5 (``csrc/ragged_strip.cu``) walk each
+(query, target) with a group of G threads, R query rows each, in passes
+of G * R rows (``csrc/wave.cuh``).  The kernels run only on the card;
+their CPU emulations, `ragged.wave_reference`, `q8.wave_reference`,
+`ragged_long.wave_segment_reference` and `ragged.wave_strip_reference`,
+mirror the passes, the per-thread row blocks, the per-thread trackers
+and their merge.  Here they run at a small G and R (4 and 2: passes of 8
+rows) so that a short query crosses threads and passes, and must equal
 
 - for K1, `pyopal_tpu.ops.pallas_ragged.search_flat` (interpreted,
   ``safe_pad=True``);
+- for K2, `pyopal_tpu.ops.pallas_q8.search_flat_q8` (interpreted): the
+  row-interleaved profiles of two groups, the second with empty slots;
 - for K3, `pyopal_tpu.ops.pallas_ragged_long.search_flat_long` with
   ``QSEG`` lowered to 32 in both packages (segments of 4 passes), and
   segment by segment, with every output it hands on, the port's plain
   version `ragged_long.segment_reference`;
+- for K5, the port's plain version `ragged.search_flat_strip_reference`
+  at the 64 tier (pad rows past every query; gaps >= 0 walk rows
+  [0, Q), a negative gap every row), and at the 512 tier, with the
+  kernel's own G and R, `pallas_ragged.search_flat` (interpreted,
+  ``safe_pad=False``);
 
 with tolerance 0: all compute integer DP.  Query lengths sit on either
 side of a pass (G * R - 1, G * R, G * R + 1, 2 * G * R + 3), targets at
@@ -37,9 +46,10 @@ import torch
 
 from pyopal_tpu.matrices import ScoringMatrix
 from pyopal_tpu.ops import packing as ref_packing
+from pyopal_tpu.ops import pallas_q8 as pq8
 from pyopal_tpu.ops import pallas_ragged as pr
 from pyopal_tpu.ops import pallas_ragged_long as prl
-from pyopal_tpu_torch.ops import ragged, ragged_long
+from pyopal_tpu_torch.ops import q8, ragged, ragged_long
 
 S = ScoringMatrix.from_name("BLOSUM50").int_data()
 ALGOS = ["nw", "hw", "ov", "sw"]
@@ -210,3 +220,90 @@ def test_wave_group_and_buffer():
         2, 2, 4, 4, 8, 8, 16, 16, 16, 16]
     assert ragged.wave_buffer_rows(256, 1000, 3) == 0
     assert ragged.wave_buffer_rows(512, 1000, 3) == 334
+
+
+#: K2's queries: two groups of `q8.QB` slots, the second with 3 empty
+#: slots; lengths at the walk's pass boundaries (7, 8, 9 at G * R = 8)
+K2_QLENS = [19, 9, 8, 7, 16, 17, 15, 1, 9, 8, 7, 18, 2]
+
+
+@pytest.mark.parametrize("with_ends", [False, True])
+@pytest.mark.parametrize("algo", ALGOS)
+def test_k2_wave_matches_reference(algo, with_ends):
+    """K2's walk at G = 4, R = 2 over row-interleaved profiles equals the
+    interpreted reference kernel on every (group, slot, lane), empty
+    slots included, in the ``(n_groups, n_blocks, 8, lanes)`` layout."""
+    rng = np.random.default_rng(43)
+    qs = [rng.integers(0, 20, n).astype(np.uint8) for n in K2_QLENS]
+    for q in qs[:3]:
+        q[1:7] = _targets()[5][40:46]
+    fp = ref_packing.pack_sequences_flat(_targets(), lanes=256)
+    groups = q8.plan_groups(K2_QLENS)
+    arrays = q8.make_profiles_q8_host(qs, S, groups, lanes=256)
+    assert len(groups) == 2 and int((arrays[1][:, :, 0] == 0).sum()) == 3
+    ref = pq8.search_flat_q8(
+        jnp.asarray(arrays[0], jnp.bfloat16),
+        *(jnp.asarray(a) for a in arrays[1:]),
+        *(jnp.asarray(a) for a in _flat(fp)), 3, 1, algo, with_ends,
+        interpret=True, chunk=fp.chunk, unroll=1, ncols=1,
+    )
+    got = q8.wave_reference(
+        *(torch.from_numpy(a) for a in arrays),
+        *(torch.from_numpy(a) for a in _flat(fp)), 3, 1, algo, with_ends,
+        fp.chunk, G=G, R=R,
+    )
+    assert got[0].shape == (2, fp.n_blocks, q8.QB, 256)
+    _assert_equal(got, ref, f"K2 {algo} ends={with_ends}")
+
+
+#: K5's gaps: >= 0 (the walk stops at row Q - 1) and one negative gap
+#: (every row walked, the pad rows counting for sw and ov)
+K5_GAPS = GAPS + [(-1, 2)]
+
+
+def _k5_args(qls, gaps, algo, q_pad=None):
+    rng = np.random.default_rng(47)
+    qs = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
+    qs[0][1:7] = _targets()[5][40:46]
+    fp = _pack()
+    return (
+        torch.from_numpy(ragged.make_profiles_host(qs, S, q_pad=q_pad)),
+        torch.tensor(qls, dtype=torch.int32),
+        *(torch.from_numpy(a) for a in _flat(fp)), *gaps, algo, fp.chunk,
+    )
+
+
+@pytest.mark.parametrize("gaps", K5_GAPS)
+@pytest.mark.parametrize("algo", ALGOS)
+def test_k5_wave_matches_plain(algo, gaps):
+    """K5's walk at G = 4, R = 2 at the 64 tier (8 passes), queries
+    ending before, on and after a pass boundary and inside a thread,
+    equals its plain version; at the negative gap the walk over rows
+    [0, Q) alone would not (sw and ov: the pad rows raise the score)."""
+    args = _k5_args([60, 33, 8, 57], gaps, algo)
+    got = ragged.wave_strip_reference(*args, G=G, R=R)
+    want = ragged.search_flat_strip_reference(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if gaps == (-1, 2) and algo in ("sw", "ov"):
+        k1_walk = ragged.wave_reference(*args[:-1], False, args[-1], G=G,
+                                        R=R)
+        assert not torch.equal(k1_walk[0], want[0])
+
+
+@pytest.mark.parametrize("algo, gaps", [("sw", (-1, 2)), ("ov", (3, 1))])
+def test_k5_wave_tier512_matches_reference(algo, gaps):
+    """K5's walk with the kernel's own G = 16 and R = 16 at the 512 tier
+    (two passes of 256 rows: row Q - 1 in the first for one query, in the
+    second for the other) equals the interpreted reference kernel."""
+    args = _k5_args([300, 100], gaps, algo)
+    assert args[0].shape[1] == 512 and ragged.wave_group(512) == 16
+    ref = pr.search_flat(
+        jnp.asarray(args[0].numpy(), jnp.bfloat16),
+        jnp.asarray(args[1].numpy()), *(jnp.asarray(a) for a in
+                                       _flat(_pack())),
+        *gaps, algo, False, interpret=True, chunk=args[-1], safe_pad=False,
+        unroll=1,
+    )
+    _assert_equal(ragged.wave_strip_reference(*args), ref,
+                  f"K5 {algo} gaps={gaps}")
