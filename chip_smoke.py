@@ -15,23 +15,24 @@ Phases (the first failure ends the run with a nonzero exit code):
    ``sm_90a``, in parallel, with each kernel's registers, stack frame
    and spills as ``ptxas`` reports them; beside them the probe
    ``tools/dpx_rate.cu``, which then measures the results per SM per
-   clock of the two DPX instructions of the wavefront walk (K1, K2, K3,
-   K5), alone and in the walk's sw cell;
+   clock of the two DPX instructions of the wavefront walk (K1-K6),
+   alone and in the walk's sw cell;
 3. each kernel against its plain PyTorch version on the card, every
    output plane in score and end modes: all four algorithms at several
    query tiers, with edge target lengths and a 2500-residue self-hit
    (score > 12000), and calls that a small scratch budget splits into
-   several launches (K1, K2 and K5: at tiers of several passes, which
-   need their pass buffer); K1 at the fine tiers 4608/5120/6144; K3
+   several launches (K1, K2, K4, K5 and K6: at tiers of several passes,
+   which need their pass buffer); K1 at the fine tiers 4608/5120/6144; K3
    segment by segment (scores, ends, the boundary rows and the trackers
    it hands on) at 32- and 64-row segments, and at 2048 rows (8 passes
    of the walk) for a 6,500-residue query against two 4,000-residue
    slices of itself; K6 (the grouped kernel) at queries of 13, 256 and
-   1,000 residues with gaps 3/1, 1/3 and 0/0 on every lane, padding
-   lanes included; K4 and K5 (no ``safe_pad``) at every algorithm, both
-   modes where the kernel has them, gaps 3/1, 1/3 and 0/0 (K5 also
-   -1/2, which walks every row), tiers 64 to 2048 (K4) and 1024 and 4096
-   (K5), and with a random 32 x 32 matrix over targets that hold symbol
+   1,000 residues with gaps 3/1, 1/3, 0/0 and -1/2 on every lane,
+   padding lanes included; K4 and K5 (no ``safe_pad``) at every
+   algorithm, both modes where the kernel has them, gaps 3/1, 1/3, 0/0
+   and -1/2 (which walks every row, ends included), tiers 64 to 2048
+   (K4) and 1024 and 4096 (K5), and with a random 32 x 32 matrix over
+   targets that hold symbol
    31 as a real letter; K7 (the narrow pass) at gaps 3/1, 0/0 and
    255/255, its scores also held against min(K2's, 255);
 4. the golden values through `pyopal_tpu_torch.Aligner` on ``cuda``;
@@ -70,14 +71,16 @@ Phases (the first failure ends the run with a nonzero exit code):
    its plain version on a 1,000-target slice); K7 on the main path's 8
    q8 groups, one query a 256-residue stretch of a target, its scores
    min(K2's, 255) and its flagged lanes counted;
-   then K1, K2, K3 and K5 against their plain versions at full width
-   where the wavefront walk changes hands: query lengths on either side
-   of a thread's 16 rows and of a pass (64, 128, 256 rows), through
-   several passes (K1 up to 515 rows, K2's q8 groups up to 512, K3 a
-   2,563-row query in two segments, K5 2,560-2,563 rows, also at a
-   negative gap, which walks all 4,096 rows), on the main database and
-   on a tie-heavy database of 12,071 repeated-motif sequences at its
-   lengths, searched with motif queries;
+   then K1-K6 against their plain versions at full width where the
+   wavefront walk changes hands: query lengths on either side of a
+   thread's 16 rows and of a pass (64, 128, 256 rows), through several
+   passes (K1 up to 515 rows, K2's q8 groups up to 512, K3 a 2,563-row
+   query in two segments, K4 up to 512 rows and K5 2,560-2,563 rows,
+   both also at a negative gap, which walks every row; K6 at 17-512
+   residues over the database stacked as one group, Q_pad 24 and 264
+   among them, also at a negative gap), on the main database and on a
+   tie-heavy database of 12,071 repeated-motif sequences at its lengths,
+   searched with motif queries;
 6. timings with CUDA events after a warm-up, each kernel held against
    its plain version at the main path's shapes (K3: one 2048-row
    segment of the 35,000-residue query; K6: the sharded path's 40
@@ -86,8 +89,8 @@ Phases (the first failure ends the run with a nonzero exit code):
    group; K4, K5 and K7 at phase 5d's shapes, also against their plain
    versions on a 1,000-target slice), the bound of each kernel over the
    cells its function needs (K5's walked rows reported apart; the
-   wavefront walk's kernels, K1, K2, K3 and K5, at their six DPX-fused
-   instructions a cell, their plain int32 bound beside it),
+   wavefront walk's kernels, K1-K6, at their six DPX-fused instructions
+   a cell, their plain int32 bound beside it; K7 at the int32 rate),
    end-to-end throughput, long-query and sharded call times, and each
    kernel's launches in one ``align_arrays`` and one ``align`` call,
    counted;
@@ -113,12 +116,11 @@ GO, GE = 3, 1
 #: from the recurrence at its least: G = H - go (1 subtraction, shared by
 #: the next column's E and the next row's F), E = max(G, E - ge) (2), F =
 #: max(G, F - ge) (2), diagonal max(H + s, E) (2), clamp at 0 (1), H = max
-#: with F (1), running best (1): the bound of the one-thread walk
-#: (``csrc/dp.cuh``: K4, K6; K7's own loop), and ``int32_bound_ms`` of
-#: every kernel
+#: with F (1), running best (1): the bound of K7's one-thread loop, and
+#: ``int32_bound_ms`` of every kernel
 OPS_PER_CELL_SW_SCORE = 10
-#: instructions per cell of the wavefront walk (``csrc/wave.cuh``: K1,
-#: K2, K3, K5) with Hopper's DPX add-max: E, F and the diagonal one
+#: instructions per cell of the wavefront walk (``csrc/wave.cuh``: K1-K6)
+#: with Hopper's DPX add-max: E, F and the diagonal one
 #: add-max each, H = max(H, F, 0), G = H - go and the running best; its
 #: bound counts them at the highest of the int32 rate and the rates
 #: measured by ``tools/dpx_rate.cu`` in this run (each DPX instruction
@@ -342,6 +344,17 @@ def main():
     def dev_flat(fp):
         return engine._flat_device(fp, dev)[:5]
 
+    def stacked_group(gp):
+        """A grouped pack as one group on the card: every block at the
+        longest group's t_pad, ``(targets, lengths)``."""
+        t_big = max(g.t_pad for g in gp.groups)
+        full_t = np.concatenate([
+            np.pad(g.targets, ((0, 0), (0, t_big - g.t_pad), (0, 0)))
+            for g in gp.groups])
+        full_l = np.concatenate([g.lengths for g in gp.groups])
+        return (torch.from_numpy(full_t).to(dev),
+                torch.from_numpy(full_l).to(dev))
+
     plain_seconds = {}  # the last plain run of each kernel
 
     # each kernel's launch count, kept by its wrapper's module: a dict by
@@ -502,11 +515,12 @@ def main():
         fail(f"K7 flagged no lane: {k7_flagged}")
 
     # K4 and K5 (no safe_pad): every algorithm, both modes where the
-    # kernel has them, gaps 3/1, 1/3 and 0/0, over the edge lengths; K4
-    # up to its 2048 tier, K5 at 1024 and at 4096 (the 2500-residue
-    # self-hit); a random 32 x 32 matrix over targets that hold symbol 31
-    # as a real letter
-    gap_sets = ((3, 1), (1, 3), (0, 0))
+    # kernel has them, gaps 3/1, 1/3, 0/0 and -1/2 (every row walked, ends
+    # too), over the edge lengths; K4 up to its 2048 tier (two queries,
+    # 8 passes), K5 at 1024 and at 4096 (the 2500-residue self-hit); a
+    # random 32 x 32 matrix over targets that hold symbol 31 as a real
+    # letter
+    gap_sets = ((3, 1), (1, 3), (0, 0), (-1, 2))
     m32 = rng.integers(-6, 7, (32, 32))
     m32 = ((m32 + m32.T) // 2).astype(np.int32)
     seqs32 = [rng.integers(0, 32, int(n)).astype(np.uint8) for n in lens]
@@ -515,9 +529,9 @@ def main():
         ("K4 tier64", [64, 40, 9], seqs, S, fp128, (False, True), gap_sets),
         ("K4 tier256", [256, 200, 129], seqs, S, fp128, (False, True),
          gap_sets),
-        ("K4 tier2048", [2000], seqs, S, fp128, (False, True), ((3, 1),)),
-        ("K5 tier1024", [1000, 700], seqs, S, fp128, (False,),
-         gap_sets + ((-1, 2),)),
+        ("K4 tier2048", [2000, 600], seqs, S, fp128, (False, True),
+         ((3, 1), (-1, 2))),
+        ("K5 tier1024", [1000, 700], seqs, S, fp128, (False,), gap_sets),
         ("K4 32x32 tier256", [256, 100], seqs32, m32, fp32, (False, True),
          ((3, 1),)),
         ("K5 32x32 tier512", [300], seqs32, m32, fp32, (False,), ((3, 1),)),
@@ -544,17 +558,11 @@ def main():
                         fail(f"{label}: {name} did not launch once")
                     v1_launches[name] += 1
                     n_checked += 1
-        if label == "K4 tier256":
+        if label in ("K4 tier2048", "K5 tier1024"):  # their pass buffer
             split_cases.append((
-                "ragged_v1", ragged.search_flat,
-                ragged.search_flat_reference, args, 8 * profs.shape[1],
-                fp.lengths.size))
-        if label == "K5 tier1024":  # its pass buffer
-            split_cases.append((
-                "ragged_strip", ragged.search_flat,
-                ragged.search_flat_reference, args,
+                name, ragged.search_flat, ragged.search_flat_reference, args,
                 8 * ragged.wave_buffer_rows(
-                    1024, fp.flat_targets.shape[0], fp.n_blocks),
+                    profs.shape[1], fp.flat_targets.shape[0], fp.n_blocks),
                 fp.lengths.size))
     # K5 on the 2500-residue self-hit at the 4096 tier: K1's score
     profs = torch.from_numpy(ragged.make_profiles_host([big], S)).to(dev)
@@ -637,7 +645,8 @@ def main():
 
     # K6: one query x a group of two 128-lane blocks at t_pad 512, every
     # lane and plane: edge lengths, zero-length (padding) lanes, symbols
-    # past each length, queries with and without pad rows
+    # past each length, queries with and without pad rows (13: one of its
+    # two threads idle; 1,000: four passes), gaps 3/1, 1/3, 0/0 and -1/2
     glens = rng.integers(0, 301, (2, 128)).astype(np.int32)
     glens[0, :9] = [0, 1, 31, 32, 33, 255, 256, 257, 300]
     glens[1, -3:] = 0
@@ -651,14 +660,14 @@ def main():
         pq = group.make_profile(q, S, dev)
         for algo in algos:
             for ends in (False, True):
-                for gaps in ((3, 1), (1, 3), (0, 0)):
+                for gaps in gap_sets:
                     compare("group", group.search_group,
                             group.search_group_reference,
                             (pq, gtgt_d, glens_d, *gaps, algo, ends),
                             f"K6 Q={Q} {algo} ends={ends} gaps={gaps}")
                     n_checked += 1
-        if Q == 13:  # one launch per 128 lanes
-            ragged.SCRATCH_BYTES = 8 * pq[0].shape[0] * 128
+        if Q == 1000:  # the pass buffer of one 128-lane block a launch
+            ragged.SCRATCH_BYTES = 8 * gtgt.shape[1] * 128
             before = group.launches
             compare("group", group.search_group,
                     group.search_group_reference,
@@ -1169,7 +1178,7 @@ def main():
           "k7_lanes": int(k7[0].numel()),
           "equal": True, "seconds": time.perf_counter() - t0, **card})
 
-    # --- 5e. K1, K2, K3 and K5 at the walk's pass boundaries, full width -----
+    # --- 5e. K1-K6 at the walk's pass boundaries, full width ----------------
     # query lengths on either side of a thread's 16 rows and of a pass
     # (64, 128 and 256 rows at G = 4, 8 and 16), through several passes,
     # against the main database; and a tie-heavy database of 12,071
@@ -1293,6 +1302,66 @@ def main():
         if ragged.launches["ragged_strip"] != before + 1:
             fail(f"K5 {lens_} {algo} gaps={gaps}: not one launch")
         edge_cases["K5"][f"{lens_} {algo} gaps={gaps}"] = 1
+    # K4 (no safe_pad): queries on either side of a thread's 16 rows (G 4
+    # at the 64 tier), at the 256-row pass, and through two passes of the
+    # 512 tier (end mode: score mode there is K5's), at 3/1 (rows [0, Q))
+    # and -1/2 (every row, the pad rows tracked with ends); motif queries
+    # on the tie-heavy database
+    edge_cases["K4"] = {}
+    for label, fpk, qs, ms_ in (
+        ("tier 64: 16, 17", fp_full,
+         [edge_query(16, False), edge_query(17, False)], modes),
+        ("tier 256: 255, 256", fp_full,
+         [edge_query(255), edge_query(256)], modes),
+        ("tier 512 (two passes): 257, 511, 512", fp_full,
+         [edge_query(n) for n in (257, 511, 512)], modes[1:]),
+        ("tie-heavy tier 512: 259, 512", fp_tie,
+         [tie_query(259), tie_query(512)], (("sw", True), ("ov", True))),
+    ):
+        profs = torch.from_numpy(ragged.make_profiles_host(qs, S)).to(dev)
+        qlens = torch.tensor([len(q) for q in qs], dtype=torch.int32,
+                             device=dev)
+        for algo, ends in ms_:
+            for gaps in ((GO, GE), (-1, 2)):
+                before = ragged.launches["ragged_v1"]
+                compare("ragged_v1", ragged.search_flat,
+                        ragged.search_flat_reference,
+                        (profs, qlens, *dev_flat(fpk), *gaps, algo, ends,
+                         fpk.chunk, False),
+                        f"K4 {label} {algo} ends={ends} gaps={gaps}")
+                if ragged.launches["ragged_v1"] != before + 1:
+                    fail(f"K4 {label}: not one launch")
+                edge_cases["K4"][f"{label} {algo} ends={ends} gaps={gaps}"] = 1
+    # K6: one query over each database stacked as one group (12,160
+    # lanes, every block at the longest t_pad): queries of 17 and 20
+    # residues (Q_pad 24, G 2) and 260 (Q_pad 264, two passes), not
+    # multiples of 16, where at -1/2 the masked final pass holds row
+    # Q - 1; 256 (one pass) and 512 (two passes); tie-heavy queries on
+    # the tie-heavy database
+    k6_full = stacked_group(gpack)
+    k6_tie = stacked_group(packing.pack_sequences(tie_t))
+    edge_cases["K6"] = {}
+    for label, (tgt_, len_), qs, ms_ in (
+        ("17, 20, 256", k6_full,
+         [edge_query(17, False), edge_query(20, False), edge_query(256)],
+         (("sw", False), ("sw", True), ("ov", True))),
+        ("260, 512", k6_full, [edge_query(260), edge_query(512)], modes),
+        ("tie-heavy 260, 512", k6_tie, [tie_query(260), tie_query(512)],
+         (("sw", True), ("ov", True))),
+    ):
+        for q in qs:
+            pq = group.make_profile(q, S, dev)
+            for algo, ends in ms_:
+                for gaps in ((GO, GE), (-1, 2)):
+                    before = group.launches
+                    compare("group", group.search_group,
+                            group.search_group_reference,
+                            (pq, tgt_, len_, *gaps, algo, ends),
+                            f"K6 {len(q)} {algo} ends={ends} gaps={gaps}")
+                    if group.launches != before + 1:
+                        fail(f"K6 {label}: not one launch")
+                    edge_cases["K6"][
+                        f"{len(q)} {algo} ends={ends} gaps={gaps}"] = 1
     emit({"phase": "wave_edges", "cases": edge_cases, "equal": True,
           "targets": n_t, "seconds": time.perf_counter() - t0, **card})
 
@@ -1338,7 +1407,7 @@ def main():
 
     def bound(cells, n_bytes, wave=False):
         """The least time of ``cells`` DP cells and ``n_bytes`` moved:
-        the one-thread walk's plain int32 operations, or (``wave``) the
+        plain int32 operations (K7's one-thread loop), or (``wave``) the
         wavefront walk's DPX-fused instructions, with its plain int32
         bound beside it as ``int32_bound_ms``."""
         ops, lanes = ((OPS_PER_CELL_WAVE, wave_lanes) if wave else
@@ -1390,7 +1459,7 @@ def main():
     # bound) count the query rows the function needs; K5's walk stops at
     # the pass that holds row 2,999 (12 passes of 256 rows of the 4096
     # tier's 16, the TPU kernel walks all 4,096), reported apart as walked
-    # cells.  K5 runs the wavefront walk, K4 and K7 the one-thread walk.
+    # cells.  K4 and K5 run the wavefront walk, K7 its one-thread loop.
     fps512 = packing.pack_database_slice_flat(db, lo, hi, lanes=lanes_q8)
     walked_rows = {"ragged_strip": -(-3000 // 256) * 256}
     new_shapes = {  # name: (inputs, packs, query rows, modes on the slice)
@@ -1432,14 +1501,15 @@ def main():
             "max_abs_err": max(errs), "cells": cells,
             "gcups": cells / (ms * 1e-3) / 1e9,
             "bytes": in_bytes + out_bytes,
-            **bound(cells, in_bytes + out_bytes, wave=key in walked_rows),
+            **bound(cells, in_bytes + out_bytes, wave=key != "q8_narrow"),
         }
+        if key != "q8_narrow":  # the walk: threads per target, rows each
+            results[key]["wave"] = {"G": ragged.wave_group(base[0].shape[1]),
+                                    "R": ragged.WAVE_R}
         if key in walked_rows:
             walked = walked_rows[key] * residues
             results[key].update(walked_cells=walked,
-                                walked_gcups=walked / (ms * 1e-3) / 1e9,
-                                wave={"G": ragged.wave_group(4096),
-                                      "R": ragged.WAVE_R})
+                                walked_gcups=walked / (ms * 1e-3) / 1e9)
         emit({"phase": "kernel_timing", "kernel": key, "mode": "sw score",
               **results[key], **card})
 
@@ -1519,15 +1589,10 @@ def main():
     path_lanes = sum(a[2].numel() for a in k6_path_args)
     path_bytes = (residues + 4 * path_lanes
                   + len(k6_path_args) * pq[0].numel() * 4 + 3 * 4 * path_lanes)
-    path_bound = bound(cells, path_bytes)
+    path_bound = bound(cells, path_bytes, wave=True)
 
-    t_big = max(g.t_pad for g in gpack.groups)
-    full_t = np.concatenate([
-        np.pad(g.targets, ((0, 0), (0, t_big - g.t_pad), (0, 0)))
-        for g in gpack.groups])
-    full_l = np.concatenate([g.lengths for g in gpack.groups])
-    base = (pq, torch.from_numpy(full_t).to(dev),
-            torch.from_numpy(full_l).to(dev), GO, GE, "sw")
+    full_l = k6_full[1]  # phase 5e's stacked group
+    base = (pq, *k6_full, GO, GE, "sw")
     errs = []
     for ends in (True, False):
         out, err = compare("group", group.search_group,
@@ -1543,9 +1608,9 @@ def main():
             group.search_group(pq, t_, l_, GO, GE, "sw", False)
 
     groups_ms = time_launches(k6_groups, (), 3)
-    n_bytes = (residues + full_l.nbytes + pq[0].numel() * 4
-               + 3 * 4 * full_l.size)
-    stacked_bound = bound(cells, n_bytes)
+    n_bytes = (residues + 4 * full_l.numel() + pq[0].numel() * 4
+               + 3 * 4 * full_l.numel())
+    stacked_bound = bound(cells, n_bytes, wave=True)
     results["group"] = {
         "ms": path_ms, "plain_ms": k6_path_plain_s * 1e3,
         "max_abs_err": max(errs + k6_path_errs), "cells": cells,
@@ -1557,8 +1622,10 @@ def main():
         "path_device_ms": path_device_ms, "path_queue_ms": queue_ms / 3,
         "stacked_ms": ms, "stacked_plain_ms": plain_seconds["group"] * 1e3,
         "stacked_bound_ms": stacked_bound["bound_ms"],
+        "wave": {"G": ragged.wave_group(pq[0].shape[0]), "R": ragged.WAVE_R},
         "stacked_gcups": cells / (ms * 1e-3) / 1e9,
-        "stacked_lanes": int(full_l.size), "stacked_t_pad": t_big,
+        "stacked_lanes": full_l.numel(),
+        "stacked_t_pad": k6_full[0].shape[1],
         "per_group_ms": groups_ms, "per_group_launches": len(gdev),
         "per_group_gcups": cells / (groups_ms * 1e-3) / 1e9,
     }

@@ -1,28 +1,15 @@
-// The one-thread affine-gap DP of K4 (ragged_v1.cu) and K6 (group.cu),
-// and the trackers and finish that every int32 kernel shares (Track,
-// track_start, dp_finish: also K1, K2, K3 and K5 on wave.cuh).  K7
-// (q8_narrow.cu) takes its constants.
+// The trackers and the finish that every int32 kernel shares (Track,
+// track_start, dp_finish: K1-K6 on wave.cuh), the dispatch of a kernel
+// template over (algorithm, mode), and the constants, which K7
+// (q8_narrow.cu) also takes.
 //
-// dp_walk: one thread owns one (query, target) pair and walks the DP
-// matrix column by column (target positions, outer loop) and row by row
-// inside a column (query positions, inner loop).  F, the vertical gap,
-// and the H values above and up-left of the current cell live in
-// registers; the previous column's H/E per query row live in a
-// per-launch scratch laid out [query][row][lane] as int2, so the 32
-// threads of a warp (neighbouring lanes) load and store one contiguous
-// 256-byte run per row.  The walk covers the profile's pad rows past the
-// query, as the TPU kernels of K4 and K6 do (PAD_ROWS): they count for
-// sw's best cell and ov's last column, while hw, ov and nw read the
-// query's last row at Q - 1.
-//
-// Tie-breaking falls out of the visiting order: trackers update only on
-// strictly greater values, so the first optimum in (column, row) order
-// wins — max score, then min target column, then min query row, the
-// rule of the reference oracle (pyopal_tpu/ops/naive.py).  hw/ov read
-// the last query row after each column; ov reads the last target column
-// with the same strictly-greater rule and loses ties to the last row; nw
-// reads the terminal cell.  Each thread stops at its own target length,
-// so pad symbols are never read.
+// Tie-breaking: max score, then min target column, then min query row,
+// the rule of the reference oracle (pyopal_tpu/ops/naive.py).  The
+// trackers update only on strictly greater values as the walk visits the
+// cells in (column, row) order, and wave.cuh joins trackers by that rule;
+// hw/ov read the last query row, ov the last target column with ties to
+// the lowest row, losing ties to the last row; nw reads the terminal
+// cell.
 //
 // All arithmetic is int32; NEG = -2^30 stays clear of wraparound because
 // every recurrence takes a max with a finite term before subtracting a
@@ -55,79 +42,12 @@ __device__ __forceinline__ Track track_start(int Q, int go, int ge) {
   return Track{ALG == HW ? empty : 0, ALG == NW ? empty : NEG, -1, -1, -1};
 }
 
-// Walks rows [0, rows) of a query of Q <= rows rows (rows past Q are the
-// profile's pad rows) against one target.
-//
-// prof: profile row 0 of this query; row i at prof + i * prof_stride
-// tgt: target position 0 of this lane; position j at tgt + j * tgt_stride
-// scr: scratch row 0 of this (query, lane); row i at scr + i * scr_stride
-template <int ALG, bool ENDS>
-__device__ __forceinline__ void dp_walk(
-    const int* __restrict__ prof, int prof_stride, int rows, int Q,
-    const uint8_t* __restrict__ tgt, int tgt_stride, int len,
-    int2* __restrict__ scr, size_t scr_stride, int go, int ge, Track& t) {
-  constexpr bool kPenRow = ALG == NW;
-  constexpr bool kPenCol = ALG == NW || ALG == HW;
-  const int last = Q - 1;  // the query's last row
-  const bool has_last = rows > 0;
-
-  // column 0 of the DP matrix: the first-column boundary, E = -inf
-  for (int i = 0; i < rows; ++i) {
-    scr[i * scr_stride] = make_int2(kPenCol ? -(go + i * ge) : 0, NEG);
-  }
-
-  for (int j = 0; j < len; ++j) {
-    const size_t jt = (size_t)j * tgt_stride;
-    const int* __restrict__ p = prof + tgt[jt];
-    const bool last_col = j == len - 1;
-    // the closed-form row 0 above at columns j and j + 1, and F entering
-    int hdiag = (kPenRow && j > 0) ? -(go + (j - 1) * ge) : 0;
-    int hup = kPenRow ? -(go + j * ge) : 0;
-    int f = NEG;
-    int hq = 0;  // H at the query's last row
-    for (int i = 0; i < rows; ++i) {
-      const int2 he = scr[i * scr_stride];
-      const int e = max(he.x - go, he.y - ge);
-      int h = max(hdiag + __ldg(p + i * prof_stride), e);
-      if (ALG == SW) h = max(h, 0);
-      f = max(hup - go, f - ge);
-      h = max(h, f);
-      hdiag = he.x;
-      hup = h;
-      scr[i * scr_stride] = make_int2(h, e);
-      if (ALG == SW) {
-        if (ENDS) {
-          if (h > t.best) {
-            t.best = h;
-            t.bi = i;
-            t.bj = j;
-          }
-        } else {
-          t.best = max(t.best, h);
-        }
-      }
-      if (ALG == OV && last_col && h > t.cap) {
-        t.cap = h;
-        t.ci = i;
-      }
-      if (i == last) hq = h;
-    }
-    if (has_last) {
-      if ((ALG == HW || ALG == OV) && hq > t.best) {
-        t.best = hq;
-        t.bj = j;
-      }
-      if (ALG == NW && last_col) t.cap = hq;
-    }
-  }
-}
-
 // Writes (score, query end, target end) of a pair from its trackers.
 // Without ENDS no position was tracked.  K1, K2 and K5 then write -1 in
-// both end planes, as their TPU kernels do; with SCORE_PLANES (K3, K4, K6) the
-// planes hold what those kernels' finalize writes from untracked (-1)
-// positions: nw Q - 1 and len - 1, hw Q - 1 and -1, ov Q - 1 and -1 or,
-// when the last column wins, -1 and len - 1, sw -1 and -1.
+// both end planes, as their TPU kernels do; with SCORE_PLANES (K3, K4,
+// K6) the planes hold what those kernels' finalize writes from untracked
+// (-1) positions: nw Q - 1 and len - 1, hw Q - 1 and -1, ov Q - 1 and -1
+// or, when the last column wins, -1 and len - 1, sw -1 and -1.
 template <int ALG, bool ENDS, bool SCORE_PLANES = false>
 __device__ __forceinline__ void dp_finish(const Track& t, int Q, int len,
                                           int* out_score, int* out_qe,

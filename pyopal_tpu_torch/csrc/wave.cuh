@@ -1,14 +1,15 @@
-// The wavefront walk of K1 (ragged.cu), K2 (q8.cu), K3 (ragged_long.cu)
-// and K5 (ragged_strip.cu): a group of G threads per (query, target) with
-// the query rows in registers.  K2's queries are the (group, slot) pairs
-// of its row-interleaved profiles (a profile row stride of 8 x 32 ints).
+// The wavefront walk of K1 (ragged.cu), K2 (q8.cu), K3 (ragged_long.cu),
+// K4 (ragged_v1.cu), K5 (ragged_strip.cu) and K6 (group.cu): a group of G
+// threads per (query, target) with the query rows in registers.  K2's
+// queries are the (group, slot) pairs of its row-interleaved profiles (a
+// profile row stride of 8 x 32 ints).
 //
-// Why: one thread per target (dp.cuh's dp_walk) gives a single-query
-// launch ~12K threads for a 12,071-sequence database, under a tenth of
-// the H100's thread slots, and each thread walks the previous column's
-// H/E through a [row][lane] scratch in device memory (16 bytes a cell,
-// 200-500 MB at 2048-5,120 rows).  The walk was latency-bound on that
-// serial chain.  Here:
+// Why: one thread per target (the kernels' first design) gives a
+// single-query launch ~12K threads for a 12,071-sequence database, under
+// a tenth of the H100's thread slots, and each thread walked the previous
+// column's H/E through a [row][lane] scratch in device memory (16 bytes a
+// cell, 200-500 MB at 2048-5,120 rows).  The walk was latency-bound on
+// that serial chain.  Here:
 //
 // - A group of G threads (a power of two, 2..16, lanes of one warp)
 //   walks one (query, target).  Thread t owns R = WAVE_R consecutive
@@ -28,8 +29,8 @@
 // - Between passes the last thread writes H and F of the pass's last
 //   row at every column to that buffer (column j at step j + G - 1), and
 //   the next pass's thread 0 reads it (column j at step j): K3 updates
-//   its hb_out/fb_out in place this way; K1, K2 and K5 keep a buffer of
-//   their own, and need none when the query fits one pass.
+//   its hb_out/fb_out in place this way; K1, K2, K4, K5 and K6 keep a
+//   buffer of their own, and need none when the query fits one pass.
 // - The pass's G * R profile rows are staged in shared memory once per
 //   block (all groups of a block share the query) as [symbol][row] with
 //   go added, interleaved so that a thread reads its R entries for one
@@ -56,9 +57,14 @@
 // desc, row asc) and still loses ties to the last row (dp_finish).  Rows
 // past the walk are neither walked (threads wholly past it skip the
 // cell work) nor tracked (the pass that holds the walk's last row masks
-// them when it ends inside a thread).  The PAD_ROWS variant (K5 at
-// negative gaps) walks the profile's pad rows past the query too: sw and
-// ov track them, and row Q - 1, wherever it lies, is read for hw/ov/nw.
+// them when it ends inside a thread).  The PAD_ROWS variant (K4, K5 and
+// K6 at negative gaps) walks the profile's pad rows past the query too:
+// sw and ov track them, in end mode too (the first row of a new maximum
+// may be a pad row, ov's last-column row likewise), and row Q - 1,
+// wherever it lies, is read for hw/ov/nw.  Where the pad rows end inside
+// a thread (PAD_TAIL: K6's profiles have a multiple of 8 rows) the pass
+// that holds row Q - 1 is also the final one, and it masks the rows past
+// the walk as well.
 #pragma once
 
 #include <climits>
@@ -91,8 +97,8 @@ __device__ __forceinline__ bool wave_first(int as, int aj, int ai, int bs,
 
 // Stages profile rows [base, base + G * R) of the walk (rows past
 // prof_rows score WAVE_PAD) with go added, for every symbol.  Profile row
-// i starts at prof + i * PSTRIDE: ALPHA for K1, K3 and K5, 8 * ALPHA for
-// K2's row-interleaved groups.
+// i starts at prof + i * PSTRIDE: ALPHA for K1, K3-K6, 8 * ALPHA for K2's
+// row-interleaved groups.
 template <int PSTRIDE = ALPHA>
 __device__ __forceinline__ void wave_stage(int4* sp,
                                            const int* __restrict__ prof,
@@ -142,7 +148,9 @@ struct WaveThread {
 
 // Step s of a pass: receive the row above, walk column s - t.  QROW
 // (PAD_ROWS, the pass that holds row Q - 1): the thread that holds it
-// tracks that row, and the pass's last thread writes the buffer.
+// tracks that row, and the pass's owner writes the buffer.  MASK: rows
+// past the walk's last row, in the pass's owner and past it, are not
+// tracked; with QROW (PAD_TAIL) both hold.
 template <int ALG, bool ENDS, bool MASK, bool QROW = false>
 __device__ __forceinline__ void wave_step(WaveThread& w, int s,
                                           const int (&Gi)[WAVE_R],
@@ -244,8 +252,16 @@ __device__ __forceinline__ void wave_step(WaveThread& w, int s,
       if (ALG == NW && j == w.len - 1) w.cap = hq;
     }
     if (w.owner && w.write_rows) {
-      w.wh[(size_t)j * w.stride] = Go[R - 1] + go;
-      w.wf[(size_t)j * w.stride] = f;
+      if (MASK) {  // the pass's last row ends inside the owner: row rl
+        int gq = Go[R - 1];
+#pragma unroll
+        for (int r = 0; r < R - 1; ++r) gq = r == w.rl ? Go[r] : gq;
+        w.wh[(size_t)j * w.stride] = gq + go;
+        w.wf[(size_t)j * w.stride] = fq;
+      } else {
+        w.wh[(size_t)j * w.stride] = Go[R - 1] + go;
+        w.wf[(size_t)j * w.stride] = f;
+      }
     }
   } else if (w.owner) {
     // H and F of the pass's (the walk's) last row held by this thread
@@ -295,16 +311,19 @@ __device__ __forceinline__ void wave_pass(WaveThread& w, int nsteps,
 //   place (column j read at step j, written at step j + G - 1; no
 //   __restrict__, so no load moves past a store).  With SEG_OUT (K3) it
 //   also receives H and F of the walk's last row; without it (K1, K2,
-//   K5) the last pass writes nothing.
+//   K4-K6) the last pass writes nothing.
 // PSTRIDE: ints from one profile row to the next (wave_stage).
-// PAD_ROWS (K5 at negative gaps): the walk's rows go past the query's Q
-//   rows (profile rows that score PAD_SCORE) and count for sw's best cell
-//   and ov's last column, while hw, ov and nw read the last row at row
-//   Q - 1, in whichever pass and thread hold it; rows must then be a
-//   multiple of WAVE_R.
+// PAD_ROWS (K4, K5 and K6 at negative gaps): the walk's rows go past the
+//   query's Q rows (profile rows that score PAD_SCORE) and count for sw's
+//   best cell and ov's last column, while hw, ov and nw read the last
+//   row at row Q - 1, in whichever pass and thread hold it; rows must
+//   then be a multiple of WAVE_R unless PAD_TAIL.
+// PAD_TAIL (K4, K6): with PAD_ROWS, rows may end inside a thread (K6's
+//   profiles have a multiple of 8 rows): the pass that holds row Q - 1
+//   may then also be the final pass, which masks the rows past the walk.
 // All G threads of a group return the same tracker.
 template <int ALG, bool ENDS, bool SEG_OUT, int PSTRIDE = ALPHA,
-          bool PAD_ROWS = false>
+          bool PAD_ROWS = false, bool PAD_TAIL = false>
 __device__ __forceinline__ void wave_walk(
     int4* sp, const int* __restrict__ prof, int prof_rows, int row0,
     int rows, int Q, const uint8_t* __restrict__ tgt, int stride, int len,
@@ -383,7 +402,10 @@ __device__ __forceinline__ void wave_walk(
     w.th_cur = w.th_next;
     w.tf_cur = w.tf_next;
     w.load_tiles(G + t);
-    if (PAD_ROWS && p == pass_q) {
+    if (PAD_ROWS && PAD_TAIL && p == pass_q && final_pass &&
+        rows % R != 0) {
+      wave_pass<ALG, ENDS, true, true>(w, nsteps, GA, GB, E);
+    } else if (PAD_ROWS && p == pass_q) {
       wave_pass<ALG, ENDS, false, true>(w, nsteps, GA, GB, E);
     } else if (final_pass && rows % R != 0) {
       wave_pass<ALG, ENDS, true>(w, nsteps, GA, GB, E);

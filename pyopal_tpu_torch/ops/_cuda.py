@@ -51,8 +51,8 @@ KERNELS = {
     "ragged": ("pyopal_ragged_launch", [_P] * 9 + [_I] * 12 + [_P]),
     "q8": ("pyopal_q8_launch", [_P] * 9 + [_I] * 12 + [_P]),
     "ragged_long": ("pyopal_ragged_long_launch", [_P] * 13 + [_I] * 11 + [_P]),
-    "group": ("pyopal_group_launch", [_P] * 7 + [_I] * 11 + [_P]),
-    "ragged_v1": ("pyopal_ragged_v1_launch", [_P] * 9 + [_I] * 10 + [_P]),
+    "group": ("pyopal_group_launch", [_P] * 7 + [_I] * 12 + [_P]),
+    "ragged_v1": ("pyopal_ragged_v1_launch", [_P] * 9 + [_I] * 12 + [_P]),
     "ragged_strip": ("pyopal_ragged_strip_launch", [_P] * 9 + [_I] * 12 + [_P]),
     "q8_narrow": ("pyopal_q8_narrow_launch", [_P] * 9 + [_I] * 10 + [_P]),
 }

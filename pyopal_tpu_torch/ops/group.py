@@ -6,19 +6,24 @@ profiles `make_profile` / `make_profile_host` (l.73-91).  The group comes
 from the grouped layout (`pyopal_tpu_torch.ops.packing.pack_sequences`):
 ``(n_blocks, t_pad, lanes)`` targets, one per lane, with ``(n_blocks,
 lanes)`` lengths.  The kernel is hand-written CUDA C++ in
-``csrc/group.cu``; its design is described there.  Its path is the
-sharded group search (`pyopal_tpu_torch.parallel.sharded`).
+``csrc/group.cu``: K4's wavefront walk (``csrc/wave.cuh``), a group of
+`ragged.wave_group` threads per lane with 16 query rows each in
+registers; its design is described there.  Its path is the sharded group
+search (`pyopal_tpu_torch.parallel.sharded`).
 
 As in `pyopal_tpu_torch.ops.ragged`:
 
 - `search_group`, the wrapper: it checks its inputs, launches the kernel
-  for CUDA tensors and counts `launches` (several where the H/E scratch
-  would exceed ``ragged.SCRATCH_BYTES``); for CPU tensors it runs the
-  plain version and counts `plain_calls`.  A CUDA tensor never falls
-  back.
+  for CUDA tensors and counts `launches` (several where the pass buffer
+  of a query beyond one pass of the walk would exceed
+  ``ragged.SCRATCH_BYTES``); for CPU tensors it runs the plain version
+  and counts `plain_calls`.  A CUDA tensor never falls back.
 - `search_group_reference`, the plain PyTorch version: a column sweep
   over every profile row with ``torch.cummax`` for the vertical gap
   (`sweep.sweep_all_rows`, shared with K4 and K5).
+- `wave_group_reference`, the kernel as it computes it on the CPU (the
+  walk's emulation, `ragged.wave_walk_reference`): for the tests, which
+  hold it against the JAX package; no call path runs it.
 
 Outputs follow the reference kernel on every lane, padding lanes
 included: it walks all ``Q_pad`` profile rows (rows past the query score
@@ -35,7 +40,10 @@ import numpy as np
 import torch
 
 from . import sweep
-from .ragged import ALGO_CODES, ALPHA, PAD_SCORE, launch_plan
+from .ragged import (
+    ALGO_CODES, ALPHA, PAD_SCORE, WAVE_R, launch_plan, wave_finish,
+    wave_group, wave_start, wave_walk_reference,
+)
 
 #: longest query the kernel takes (reference ``MAX_QPAD``)
 MAX_QPAD = 4096
@@ -103,9 +111,9 @@ def search_group(
 ):
     """One query x every lane of a stacked group of blocks.
 
-    One kernel launch, or several over lane ranges where one launch's H/E
-    scratch would exceed ``ragged.SCRATCH_BYTES``; each adds one to
-    `launches`.
+    One kernel launch, or, for a query beyond one pass of the walk (256
+    rows), several over lane ranges where one launch's pass buffer would
+    exceed ``ragged.SCRATCH_BYTES``; each adds one to `launches`.
 
     Arguments:
         prof_and_q: ``(profile, Q)`` from `make_profile`: the
@@ -136,18 +144,25 @@ def search_group(
     n_blocks, t_pad, lanes = targets.shape
     targets = targets.to(torch.uint8)
     q_pad = prof.shape[0]
+    G = wave_group(q_pad)
     outs = [
         torch.empty((n_blocks, lanes), dtype=torch.int32, device=dev)
         for _ in range(3)
     ]
-    _, n_lanes, chunks = launch_plan(1, q_pad, n_blocks * lanes)
-    scratch = torch.empty((q_pad, n_lanes, 2), dtype=torch.int32, device=dev)
-    for _, _, n0, n1 in chunks:  # one stream: launches reuse scratch
+    chunks, buf = [(0, n_blocks * lanes)], 0  # one pass: no buffer
+    if q_pad > G * WAVE_R:
+        # H and F of a pass's last row at each column of each lane,
+        # [block][H, F][t_pad][lanes] from a launch's first block
+        chunks = [c[2:] for c in launch_plan(1, t_pad, n_blocks * lanes)[2]]
+        span = max((n1 - 1) // lanes - n0 // lanes + 1 for n0, n1 in chunks)
+        buf = torch.empty((span, 2, t_pad, lanes), dtype=torch.int32,
+                          device=dev)
+    for n0, n1 in chunks:  # one stream: launches reuse the buffer
         _cuda.launch(
             "group",
-            prof, targets, lengths, *outs, scratch,
+            prof, targets, lengths, *outs, buf,
             Q, q_pad, t_pad, n_blocks, lanes, n0, n1 - n0, int(go), int(ge),
-            ALGO_CODES[algorithm], int(bool(with_ends)),
+            ALGO_CODES[algorithm], int(bool(with_ends)), G,
         )
         launches += 1
     return tuple(outs)
@@ -168,3 +183,34 @@ def search_group_reference(
         with_ends,
     )
     return tuple(x[0].reshape(n_blocks, lanes) for x in out)
+
+
+def wave_group_reference(prof_and_q, targets, lengths, go, ge, algorithm,
+                         with_ends=True, G=None, R=WAVE_R):
+    """K6 as its CUDA kernel computes it: `ragged.wave_walk_reference`
+    over the group's lanes, ``G`` threads of ``R`` rows each (``G``: the
+    kernel's `ragged.wave_group` of ``Q_pad`` by default), rows ``[0,
+    Q)`` when both gaps are >= 0, else every ``Q_pad`` row with the
+    pad-row walk, and the score-mode end planes of `search_group`.  Same
+    inputs and outputs as `search_group`; CPU tensors only.  The tests
+    hold it against the JAX package; no call path uses it."""
+    prof, Q = prof_and_q
+    q_pad = prof.shape[0]
+    n_blocks, t_pad, lanes = targets.shape
+    N = n_blocks * lanes
+    G = wave_group(q_pad, R) if G is None else G
+    pad_rows = go < 0 or ge < 0
+    i64 = torch.int64
+    tgt = targets.permute(1, 0, 2).reshape(t_pad, N).to(i64)
+    lens = lengths.reshape(-1).to(i64)
+    Qv = torch.full((N,), int(Q), dtype=i64)
+    rows = torch.full_like(Qv, q_pad if pad_rows else int(Q))
+    buf = torch.zeros((t_pad, N), dtype=i64)
+    trk = wave_walk_reference(
+        prof.reshape(-1), q_pad, torch.zeros(N, dtype=i64), 0, rows, Qv, tgt,
+        lens, buf, buf, buf.clone(), buf.clone(), go, ge, algorithm,
+        with_ends, wave_start(Qv, go, ge, algorithm), G, R, False,
+        pad_rows=pad_rows,
+    )
+    out = wave_finish(trk, Qv, lens, algorithm, with_ends, True)
+    return tuple(x.reshape(n_blocks, lanes) for x in out)

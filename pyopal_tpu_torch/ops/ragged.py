@@ -19,12 +19,12 @@ K4 and K5 answer over all ``Q_pad`` profile rows, pad rows included,
 and K4 fills the score-mode end planes from untracked positions, as
 their TPU kernels do (`sweep.sweep_all_rows`); K1 stops at the query's
 length and writes -1 planes in score mode.  Each kernel is hand-written
-CUDA C++, its design described in its source: K4 gives one thread to
-each query x target lane (``csrc/dp.cuh``); K1 and K5 give each a group
-of `wave_group` threads with 16 query rows each in registers, walking
-the target as a wavefront (``csrc/wave.cuh``, shared with K2 and K3).
-K5 walks the pad rows only where a gap is negative: with both gaps >= 0
-no path through a pad row can raise a score (``csrc/ragged_strip.cu``).
+CUDA C++, its design described in its source: all three give each query
+x target lane a group of `wave_group` threads with 16 query rows each in
+registers, walking the target as a wavefront (``csrc/wave.cuh``, shared
+with K2, K3 and K6).  K4 and K5 walk the pad rows only where a gap is
+negative: with both gaps >= 0 no path through a pad row can raise a
+score or move an end (the proof is in ``csrc/ragged_v1.cu``).
 
 Four things live here:
 
@@ -36,10 +36,11 @@ Four things live here:
   function, routed alike: a column sweep (`pyopal_tpu_torch.ops.sweep`)
   for K1, `search_flat_v1_reference` for K4 and
   `search_flat_strip_reference` for K5.
-- `wave_reference` and `wave_strip_reference`, K1 and K5 as their
-  kernels compute them (`wave_walk_reference`, the walk's CPU emulation,
-  also K2's and K3's): for the tests, which hold them against the JAX
-  package at small group sizes; no call path runs them.
+- `wave_reference`, `wave_v1_reference` and `wave_strip_reference`, K1,
+  K4 and K5 as their kernels compute them (`wave_walk_reference`, the
+  walk's CPU emulation, also K2's, K3's and K6's): for the tests, which
+  hold them against the JAX package at small group sizes; no call path
+  runs them.
 - the host-side profiles and tier helpers shared with the engine,
   including the fine tiers of single long queries (`fine_qpad`,
   `supports_fine`, ``pallas_ragged.py`` l.113-152), which K1 takes in
@@ -79,9 +80,8 @@ LANES = 128
 
 ALGO_CODES = {"sw": 0, "nw": 1, "hw": 2, "ov": 3}
 #: largest scratch (bytes) one kernel launch may use: the H/E scratch of
-#: K4, K6 and K7, the pass buffer of K1, K2 and K5 at tiers of several
-#: passes; a call that needs more is split into launches over query and
-#: lane ranges
+#: K7, the pass buffer of K1, K2 and K4-K6 at tiers of several passes; a
+#: call that needs more is split into launches over query and lane ranges
 SCRATCH_BYTES = 2 << 30
 
 #: kernel launches made by `search_flat` on CUDA tensors, by kernel
@@ -195,11 +195,12 @@ def launch_plan(n_units, unit_rows, n_lanes, budget=None, cell_bytes=8):
     """Split a kernel call into launches whose scratch fits ``budget``.
 
     A call covers ``n_units`` scratch units (queries, or q8 groups) of
-    ``unit_rows`` query rows each, over ``n_lanes`` target lanes; one
-    (unit, lane) needs ``unit_rows`` scratch cells of ``cell_bytes``
-    (int2 H/E: 8; K7's short2: 4).  A launch takes every lane and as many
-    units as fit, or one unit and a multiple of 128 lanes when all lanes
-    do not fit (at least 128 lanes whatever the budget).  Returns
+    ``unit_rows`` rows each, over ``n_lanes`` target lanes; one (unit,
+    lane) needs ``unit_rows`` scratch cells of ``cell_bytes`` (the pass
+    buffer's H and F at a target column: 8; K7's short2 H/E at a query
+    row: 4).  A launch takes every lane and as many units as fit, or one
+    unit and a multiple of 128 lanes when all lanes do not fit (at least
+    128 lanes whatever the budget).  Returns
     ``(units, lanes, chunks)``: the scratch extent of one launch and its
     ``(unit0, unit1, lane0, lane1)`` ranges.
     """
@@ -267,10 +268,9 @@ def search_flat(
 
     Runs the kernel `flat_route` names: K1 under ``safe_pad``, else K5
     for score-only calls at tiers of `STRIP_MIN_QPAD` rows and more, else
-    K4.  One kernel launch, or several where one launch's scratch (K1
-    and K5: their pass buffer, at tiers beyond one pass) would exceed
-    `SCRATCH_BYTES` (`launch_plan`); each adds one to the kernel's count
-    in `launches`.
+    K4.  One kernel launch, or several where one launch's pass buffer (at
+    tiers beyond one pass of the walk) would exceed `SCRATCH_BYTES`
+    (`wave_buffer`); each adds one to the kernel's count in `launches`.
 
     Arguments:
         profs: ``(n_q, Q_pad, 32)`` int32 profiles (`make_profiles_host`)
@@ -326,21 +326,16 @@ def search_flat(
         torch.empty((n_q, n_blocks, lanes), dtype=torch.int32, device=dev)
         for _ in range(3)
     ]
-    if route == "ragged_v1":  # K4's H/E scratch rows per (query, lane)
-        units, n_lanes, chunks = launch_plan(n_q, q_pad, n_blocks * lanes)
-        scratch = torch.empty(
-            (units, q_pad, n_lanes, 2), dtype=torch.int32, device=dev)
-        extra = ()
-    else:  # K1's and K5's pass buffer, then the flat rows and group size
-        chunks, scratch = wave_buffer(n_q, 1, q_pad, flat_targets, n_blocks)
-        extra = (flat_targets.shape[0], wave_group(q_pad))
-    for q0, q1, n0, n1 in chunks:  # one stream: launches reuse scratch
+    # the pass buffer of tiers beyond one pass of the walk
+    chunks, buf = wave_buffer(n_q, 1, q_pad, flat_targets, n_blocks)
+    for q0, q1, n0, n1 in chunks:  # one stream: launches reuse the buffer
         _cuda.launch(
             route,
             profs[q0:q1], qlens[q0:q1], flat_targets, lengths, row_off,
-            *(o[q0:q1] for o in outs), scratch,
+            *(o[q0:q1] for o in outs), buf,
             q1 - q0, q_pad, n_blocks, lanes, n0, n1 - n0, int(go), int(ge),
-            ALGO_CODES[algorithm], int(bool(with_ends)), *extra,
+            ALGO_CODES[algorithm], int(bool(with_ends)),
+            flat_targets.shape[0], wave_group(q_pad),
         )
         launches[route] += 1
     return tuple(outs)
@@ -432,7 +427,7 @@ def search_flat_strip_reference(
     return s, torch.full_like(s, -1), torch.full_like(s, -1)
 
 
-# --- K1's and K3's wavefront walk (csrc/wave.cuh) -------------------------
+# --- the wavefront walk (csrc/wave.cuh) ---------------------------------
 
 #: query rows per thread of the wavefront walk (``csrc/wave.cuh``: WAVE_R)
 WAVE_R = 16
@@ -451,17 +446,17 @@ def wave_group(rows: int, R: int = WAVE_R) -> int:
 
 
 def wave_buffer_rows(q_pad: int, flat_rows: int, n_blocks: int) -> int:
-    """Buffer rows per (query, lane) that K1 needs at a ``q_pad``-row
-    tier, on average over the flat pack's lanes: 0 when the tier fits one
-    pass of the walk, else the mean target columns of a lane (the buffer
-    holds H and F of a pass's last row at each of them)."""
+    """Buffer rows per (query, lane) that K1, K4 and K5 need at a
+    ``q_pad``-row tier, on average over the flat pack's lanes: 0 when the
+    tier fits one pass of the walk, else the mean target columns of a lane
+    (the buffer holds H and F of a pass's last row at each of them)."""
     if q_pad <= wave_group(q_pad) * WAVE_R:
         return 0
     return -(-flat_rows // max(n_blocks, 1))
 
 
 def wave_buffer(n_units, slots, q_pad, flat_targets, n_blocks):
-    """The pass buffer of a wavefront-walk call (K1, K2, K5) and its
+    """The pass buffer of a wavefront-walk call (K1, K2, K4, K5) and its
     launches: ``(chunks, buffer)``.
 
     A unit (a query, or a q8 group of ``slots`` queries) needs H and F
@@ -501,11 +496,12 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
     that holds it), joined per pass, across threads by xor butterfly and
     with the incoming tracker by (score desc, column asc, row asc); hw/ov
     and nw read the last row in the owning thread; rows past the walk are
-    masked.  With ``pad_rows`` (the kernel's PAD_ROWS, K5 at negative
-    gaps) the walk's rows go past the query: sw and ov track them, and
-    row ``Q - 1`` is read in whichever pass and thread hold it (``rows``
-    a multiple of ``R``).  Vectorized over walks and threads in torch
-    (int64).
+    masked.  With ``pad_rows`` (the kernel's PAD_ROWS, K4, K5 and K6 at
+    negative gaps) the walk's rows go past the query: sw and ov track
+    them, and row ``Q - 1`` is read in whichever pass and thread hold it;
+    where ``rows`` is not a multiple of ``R`` (PAD_TAIL) the final pass
+    masks the rows past the walk, also when it holds row ``Q - 1``.
+    Vectorized over walks and threads in torch (int64).
 
     Arguments (N walks, T columns):
         prof_flat: ``(n_prof * prof_rows * 32,)`` profile entries;
@@ -772,14 +768,16 @@ def wave_reference(
     G=None,
     R=WAVE_R,
     pad_rows=False,
+    score_planes=False,
 ):
     """K1 as its CUDA kernel computes it: `wave_walk_reference` for every
     (query, target lane), ``G`` threads of ``R`` rows each (``G``: the
     kernel's `wave_group` of the tier by default).  Same inputs and
     outputs as `search_flat` under ``safe_pad``; CPU tensors only.
-    With ``pad_rows`` every walk covers all ``Q_pad`` rows
-    (`wave_strip_reference`).  The tests hold it against the JAX
-    package; no call path uses it."""
+    With ``pad_rows`` every walk covers all ``Q_pad`` rows, and with
+    ``score_planes`` the score-mode end planes are K4's
+    (`wave_v1_reference`, `wave_strip_reference`).  The tests hold it
+    against the JAX package; no call path uses it."""
     del cos, los
     n_q, q_pad, _ = profs.shape
     n_blocks, _, lanes = lengths.shape
@@ -799,8 +797,25 @@ def wave_reference(
         buf.clone(), buf.clone(), go, ge, algorithm, with_ends,
         wave_start(Q, go, ge, algorithm), G, R, False, pad_rows=pad_rows,
     )
-    out = wave_finish(trk, Q, lens, algorithm, with_ends, False)
+    out = wave_finish(trk, Q, lens, algorithm, with_ends, score_planes)
     return tuple(x.reshape(n_q, n_blocks, lanes) for x in out)
+
+
+def wave_v1_reference(profs, qlens, flat_targets, lengths, bos, cos, los,
+                      go, ge, algorithm, with_ends, chunk=64, G=None,
+                      R=WAVE_R, pad_rows=None):
+    """K4 as its CUDA kernel computes it: K1's walk over rows ``[0, Q)``
+    when both gaps are >= 0, else over every ``Q_pad`` row with the
+    pad-row walk (``pad_rows`` forces either), and K4's score-mode end
+    planes.  Same inputs and outputs as `search_flat` without
+    ``safe_pad`` at K4's tiers; CPU tensors only.  The tests hold it
+    against the JAX package; no call path uses it."""
+    if pad_rows is None:
+        pad_rows = go < 0 or ge < 0
+    return wave_reference(
+        profs, qlens, flat_targets, lengths, bos, cos, los, go, ge,
+        algorithm, with_ends, chunk, G, R, pad_rows=pad_rows,
+        score_planes=True)
 
 
 def wave_strip_reference(profs, qlens, flat_targets, lengths, bos, cos, los,

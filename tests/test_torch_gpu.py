@@ -313,12 +313,13 @@ def _v1_args(dev, seed, qls, algo, with_ends, alphabet=20, matrix=S,
     )
 
 
-@pytest.mark.parametrize("gaps", [(3, 1), (1, 3), (0, 0)])
+@pytest.mark.parametrize("gaps", [(3, 1), (1, 3), (0, 0), (-1, 2)])
 @pytest.mark.parametrize("with_ends", [False, True])
 @pytest.mark.parametrize("algo", ["nw", "hw", "ov", "sw"])
 def test_ragged_v1_kernel_matches_plain(dev, algo, with_ends, gaps):
     """K4 (no ``safe_pad``) at the 256 tier, every plane, pad rows
-    included (a 31-residue query)."""
+    included (a 31-residue query): rows [0, Q) at gaps >= 0, every row
+    at -1/2, with ends too."""
     args = _v1_args(dev, 13, [200, 31], algo, with_ends, go=gaps[0],
                     ge=gaps[1])
     before = dict(ragged.launches)
@@ -388,16 +389,17 @@ def test_symbol_31_as_a_real_letter_matches_plain(dev, algo, with_ends, tier):
 def test_v1_kernels_split_by_scratch_budget_match_plain(dev, kernel,
                                                          monkeypatch):
     """A budget of one query and 128 lanes a launch splits K4 and K5
-    calls over queries and lanes."""
+    calls over queries and lanes (at the 1024 tier, four passes, which
+    need their pass buffer)."""
     ends = kernel == "ragged_v1"
-    qls = [200, 31, 90] if ends else [600, 300]
+    qls = [600, 31, 90] if ends else [600, 300]
     args = _v1_args(dev, 16, qls, "sw", ends, n_seqs=30)
     n_lanes = args[3].numel()
     rows = args[2].shape[0]
-    # K4: its H/E rows; K5: its pass buffer, H and F of the lane's columns
-    unit_rows = (args[0].shape[1] if ends
-                 else ragged.wave_buffer_rows(args[0].shape[1], rows,
-                                              args[3].shape[0]))
+    # the pass buffer: H and F of the lane's columns
+    unit_rows = ragged.wave_buffer_rows(args[0].shape[1], rows,
+                                        args[3].shape[0])
+    assert unit_rows > 0
     monkeypatch.setattr(ragged, "SCRATCH_BYTES", 8 * unit_rows * 128)
     before = ragged.launches[kernel]
     _equal(ragged.search_flat(*args), ragged.search_flat_reference(*args))
@@ -449,35 +451,44 @@ def test_q8_narrow_split_by_scratch_budget_matches_plain(dev, monkeypatch):
     assert want > 2 and q8.launches["q8_narrow"] == before + want
 
 
-def _group_args(dev, seed, n_blocks=2):
+def _group_args(dev, seed, n_blocks=2, Q=13):
     """A K6 group: blocks of 128 lanes at t_pad 512 with the edge lengths
-    and zero-length lanes, and a 13-residue query (3 pad rows)."""
+    and zero-length lanes, and a query of ``Q`` residues (13: 3 pad
+    rows)."""
     rng = np.random.default_rng(seed)
     lengths = rng.integers(0, 301, (n_blocks, 128)).astype(np.int32)
     lengths[0, :9] = [0, 1, 31, 32, 33, 255, 256, 257, 300]
     lengths[-1, -3:] = 0
     targets = rng.integers(0, 24, (n_blocks, 512, 128)).astype(np.uint8)
-    q = rng.integers(0, 24, 13).astype(np.uint8)
+    q = rng.integers(0, 24, Q).astype(np.uint8)
     q[:10] = targets[0, 20:30, 7]
     return (group.make_profile(q, S, dev), torch.from_numpy(targets).to(dev),
             torch.from_numpy(lengths).to(dev))
 
 
+@pytest.mark.parametrize("gaps", [(3, 1), (-1, 2)])
 @pytest.mark.parametrize("with_ends", [False, True])
 @pytest.mark.parametrize("algo", ["nw", "hw", "ov", "sw"])
-def test_group_kernel_matches_plain(dev, algo, with_ends):
-    """K6 on every lane and plane, padding lanes included."""
-    prof, targets, lengths = _group_args(dev, 10)
-    args = (prof, targets, lengths, 3, 1, algo, with_ends)
-    before = group.launches
-    _equal(group.search_group(*args), group.search_group_reference(*args))
-    assert group.launches == before + 1
+def test_group_kernel_matches_plain(dev, algo, with_ends, gaps):
+    """K6 on every lane and plane, padding lanes included, at queries of
+    13 (one thread of rows idle), 20 and 260 residues (Q_pad 24 and 264,
+    not multiples of 16: at -1/2 the masked final pass holds row Q - 1;
+    260: two passes)."""
+    for Q in (13, 20, 260):
+        prof, targets, lengths = _group_args(dev, 10, Q=Q)
+        args = (prof, targets, lengths, *gaps, algo, with_ends)
+        before = group.launches
+        _equal(group.search_group(*args),
+               group.search_group_reference(*args))
+        assert group.launches == before + 1
 
 
 def test_group_kernel_split_by_scratch_budget_matches_plain(dev, monkeypatch):
-    """A budget of 16 rows x 128 lanes makes one launch per block."""
-    prof, targets, lengths = _group_args(dev, 11, n_blocks=3)
-    monkeypatch.setattr(ragged, "SCRATCH_BYTES", 8 * 16 * 128)
+    """A 300-residue query (two passes, which need the pass buffer) and a
+    budget of one block's buffer (512 columns x 128 lanes) make one
+    launch per block."""
+    prof, targets, lengths = _group_args(dev, 11, n_blocks=3, Q=300)
+    monkeypatch.setattr(ragged, "SCRATCH_BYTES", 8 * 512 * 128)
     args = (prof, targets.to(torch.int32), lengths, 1, 3, "sw", True)
     before = group.launches
     _equal(group.search_group(*args), group.search_group_reference(*args))

@@ -1,15 +1,17 @@
-"""The wavefront walk of K1, K2, K3 and K5, emulated on the CPU, against
-`pyopal_tpu`.
+"""The wavefront walk of K1-K6, emulated on the CPU, against `pyopal_tpu`.
 
 The CUDA kernels of K1 (``csrc/ragged.cu``), K2 (``csrc/q8.cu``), K3
-(``csrc/ragged_long.cu``) and K5 (``csrc/ragged_strip.cu``) walk each
-(query, target) with a group of G threads, R query rows each, in passes
-of G * R rows (``csrc/wave.cuh``).  The kernels run only on the card;
-their CPU emulations, `ragged.wave_reference`, `q8.wave_reference`,
-`ragged_long.wave_segment_reference` and `ragged.wave_strip_reference`,
-mirror the passes, the per-thread row blocks, the per-thread trackers
-and their merge.  Here they run at a small G and R (4 and 2: passes of 8
-rows) so that a short query crosses threads and passes, and must equal
+(``csrc/ragged_long.cu``), K4 (``csrc/ragged_v1.cu``), K5
+(``csrc/ragged_strip.cu``) and K6 (``csrc/group.cu``) walk each (query,
+target) with a group of G threads, R query rows each, in passes of G * R
+rows (``csrc/wave.cuh``).  The kernels run only on the card; their CPU
+emulations, `ragged.wave_reference`, `q8.wave_reference`,
+`ragged_long.wave_segment_reference`, `ragged.wave_v1_reference`,
+`ragged.wave_strip_reference` and `group.wave_group_reference`, mirror
+the passes, the per-thread row blocks, the per-thread trackers and their
+merge.  Here they run at a small G and R (4 and 2: passes of 8 rows) so
+that a short query crosses threads and passes, or at the kernels' own,
+and must equal
 
 - for K1, `pyopal_tpu.ops.pallas_ragged.search_flat` (interpreted,
   ``safe_pad=True``);
@@ -24,6 +26,15 @@ rows) so that a short query crosses threads and passes, and must equal
   [0, Q), a negative gap every row), and at the 512 tier, with the
   kernel's own G and R, `pallas_ragged.search_flat` (interpreted,
   ``safe_pad=False``);
+- for K4, `pallas_ragged.search_flat` (interpreted, ``safe_pad=False``)
+  at the 64 tier, where every query has pad rows (G = 4, R = 2; gaps
+  >= 0 walk rows [0, Q) in both modes, -1/2 every row, ends included),
+  and at the 512 tier with the kernel's own G = 16, R = 16 in end mode;
+- for K6, `pyopal_tpu.ops.pallas_kernel.search_group` (interpreted) on
+  ``tests/test_torch_group.py``'s group, with the kernel's own G and R,
+  at queries whose ``Q_pad`` (a multiple of 8) is not a multiple of 16
+  (20, 260), so that at -1/2 the masked final pass holds row ``Q - 1``,
+  and at 13 (one of two threads without rows);
 
 with tolerance 0: all compute integer DP.  Query lengths sit on either
 side of a pass (G * R - 1, G * R, G * R + 1, 2 * G * R + 3), targets at
@@ -33,7 +44,8 @@ different threads, passes and columns.  The interpreted reference
 kernels compile once per algorithm, mode and gap pair (~1 s for K1 at
 ``unroll=1``, ~3 s for K3), so each K1 case makes one reference call
 with every query in it, and K3 calls the reference in the cases of
-`K3_REF` only; the file takes about a minute on one CPU process.
+`K3_REF` only; the file takes about three minutes on one CPU process,
+half of it K4's and K6's cases.
 """
 
 import functools
@@ -46,10 +58,11 @@ import torch
 
 from pyopal_tpu.matrices import ScoringMatrix
 from pyopal_tpu.ops import packing as ref_packing
+from pyopal_tpu.ops import pallas_kernel as pk
 from pyopal_tpu.ops import pallas_q8 as pq8
 from pyopal_tpu.ops import pallas_ragged as pr
 from pyopal_tpu.ops import pallas_ragged_long as prl
-from pyopal_tpu_torch.ops import q8, ragged, ragged_long
+from pyopal_tpu_torch.ops import group, q8, ragged, ragged_long
 
 S = ScoringMatrix.from_name("BLOSUM50").int_data()
 ALGOS = ["nw", "hw", "ov", "sw"]
@@ -307,3 +320,134 @@ def test_k5_wave_tier512_matches_reference(algo, gaps):
     )
     _assert_equal(ragged.wave_strip_reference(*args), ref,
                   f"K5 {algo} gaps={gaps}")
+
+
+#: K4's cases at the 64 tier: every algorithm and mode at 3/1 (rows
+#: [0, Q) walked) and -1/2 (every row), and sw and ov, the algorithms
+#: that read pad rows, in end mode at 0/0 (tie-heavy: the pad rows as
+#: good as the rows above them)
+K4_CASES = [(a, e, g) for g in [(3, 1), (-1, 2)] for a in ALGOS
+            for e in (False, True)]
+K4_CASES += [("sw", True, (0, 0)), ("ov", True, (0, 0))]
+
+
+def _v1(qs, gaps, algo, with_ends):
+    """K4's inputs over `_pack`, and the interpreted reference kernel's
+    answer (``safe_pad=False``)."""
+    fp = _pack()
+    profs = ragged.make_profiles_host(qs, S)
+    ref = pr.search_flat(
+        jnp.asarray(profs, jnp.bfloat16),
+        jnp.asarray([len(q) for q in qs], jnp.int32),
+        *(jnp.asarray(a) for a in _flat(fp)), *gaps, algo, with_ends,
+        interpret=True, chunk=fp.chunk, safe_pad=False, unroll=1,
+    )
+    args = (
+        torch.from_numpy(profs), torch.tensor([len(q) for q in qs],
+                                              dtype=torch.int32),
+        *(torch.from_numpy(a) for a in _flat(fp)), *gaps, algo, with_ends,
+        fp.chunk,
+    )
+    return args, ref
+
+
+@pytest.mark.parametrize("algo, with_ends, gaps", K4_CASES)
+def test_k4_wave_matches_reference(algo, with_ends, gaps):
+    """K4's walk at G = 4, R = 2 at the 64 tier equals the interpreted
+    reference kernel, which walks all 64 rows.  Every query of `_queries`
+    ends before row 64 (7-19 residues, the motif one too): at gaps >= 0
+    the walk stops at row Q - 1 in both modes and still gives the
+    reference's ends (``csrc/ragged_v1.cu``'s proof), also at the
+    kernel's own G = 4, R = 16; at -1/2 it walks every row (8 passes),
+    and there the walk over rows [0, Q) alone would differ (sw and ov:
+    the pad rows raise the score)."""
+    args, ref = _v1(_queries(), gaps, algo, with_ends)
+    _assert_equal(ragged.wave_v1_reference(*args, G=G, R=R), ref,
+                  f"K4 G={G} R={R}")
+    if gaps == (3, 1):
+        assert ragged.wave_group(64) == 4
+        _assert_equal(ragged.wave_v1_reference(*args), ref, "kernel's G, R")
+    if gaps == (-1, 2) and algo in ("sw", "ov"):
+        early = ragged.wave_v1_reference(*args, G=G, R=R, pad_rows=False)
+        assert not np.array_equal(early[0].numpy(), np.asarray(ref[0]))
+
+
+#: K4 at the 512 tier (end mode: score mode there is K5's), with the
+#: kernel's own G = 16, R = 16: the pad-row walk with ends at -1/2 for
+#: every algorithm, and rows [0, Q) at 3/1 and at 0/0
+K4_512_CASES = [(a, (-1, 2)) for a in ALGOS] + [("sw", (3, 1)),
+                                                 ("ov", (0, 0))]
+
+
+@pytest.mark.parametrize("algo, gaps", K4_512_CASES)
+def test_k4_wave_tier512_matches_reference(algo, gaps):
+    """Two passes of 256 rows: a 300-residue query (row Q - 1 in the
+    second pass) holding 6 residues of the 129-residue target and a
+    100-residue motif query (in the first), every lane, end mode."""
+    qs = [np.random.default_rng(53).integers(0, 20, 300).astype(np.uint8),
+          _motif(100, 3)]
+    qs[0][1:7] = _targets()[5][40:46]
+    args, ref = _v1(qs, gaps, algo, True)
+    assert args[0].shape[1] == 512 and ragged.wave_group(512) == 16
+    _assert_equal(ragged.wave_v1_reference(*args), ref,
+                  f"K4 tier 512 {algo} gaps={gaps}")
+
+
+#: K6's cases (Q, algorithm, with_ends, gaps) on `_group`: Q = 20 (Q_pad
+#: 24, G = 2: at -1/2 the one pass is masked and holds row Q - 1), 260
+#: (Q_pad 264, G = 16: two passes, the second masked and holding row
+#: Q - 1), 13 (Q_pad 16, G = 2: the second thread holds no row)
+K6_CASES = (
+    [(20, a, True, (-1, 2)) for a in ALGOS]
+    + [(20, "sw", False, (-1, 2)), (20, "ov", False, (-1, 2)),
+       (20, "sw", True, (3, 1)), (20, "hw", False, (3, 1))]
+    + [(260, a, True, (-1, 2)) for a in ("sw", "ov", "hw")]
+    + [(260, "nw", False, (-1, 2)), (260, "ov", True, (3, 1))]
+    + [(13, "sw", True, (-1, 2)), (13, "ov", False, (-1, 2)),
+       (13, "sw", True, (3, 1))]
+)
+
+
+def _k6(Q, prof_rows=None):
+    """`_group` and a query of ``Q`` residues holding 10 of lane 7's,
+    with its profile padded to ``prof_rows`` rows of ``PAD_SCORE``."""
+    from test_torch_group import _group
+
+    targets, lengths = _group(Q)
+    q = np.random.default_rng(100 + Q).integers(0, 24, Q).astype(np.uint8)
+    q[:10] = targets[0, 20:30, 7]
+    prof = pk.make_profile_host(q, S)
+    if prof_rows is not None:
+        prof = np.pad(prof, ((0, prof_rows - prof.shape[0]), (0, 0)),
+                      constant_values=ragged.PAD_SCORE)
+    return prof, targets, lengths
+
+
+def _k6_compare(Q, algo, with_ends, gaps, prof_rows=None):
+    prof, targets, lengths = _k6(Q, prof_rows)
+    ref = pk.search_group(
+        (jnp.asarray(prof), Q), targets.astype(np.int32), lengths, *gaps,
+        algo, with_ends=with_ends, interpret=True,
+    )
+    got = group.wave_group_reference(
+        (torch.from_numpy(prof), Q), torch.from_numpy(targets),
+        torch.from_numpy(lengths), *gaps, algo, with_ends,
+    )
+    _assert_equal(got, ref, f"K6 Q={Q} {algo} ends={with_ends} gaps={gaps}")
+
+
+@pytest.mark.parametrize("Q, algo, with_ends, gaps", K6_CASES)
+def test_k6_wave_matches_reference(Q, algo, with_ends, gaps):
+    """K6's walk with the kernel's own G and R = 16 equals the
+    interpreted reference kernel on every lane and plane, padding and
+    zero-length lanes included."""
+    q_pad = -(-Q // 8) * 8
+    assert ragged.wave_group(q_pad) == (16 if Q > 32 else 2)
+    _k6_compare(Q, algo, with_ends, gaps)
+
+
+def test_k6_wave_qrow_before_masked_pass_matches_reference():
+    """A 13-residue query with a 264-row profile at -1/2, sw with ends:
+    row Q - 1 lies in the first pass, the masked final pass holds pad
+    rows only."""
+    _k6_compare(13, "sw", True, (-1, 2), prof_rows=264)
