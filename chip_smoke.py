@@ -14,15 +14,16 @@ Phases (the first failure ends the run with a nonzero exit code):
    ``group.cu``, ``q8_narrow.cu``) compiled with ``nvcc`` for
    ``sm_90a``, in parallel, with each kernel's registers, stack frame
    and spills as ``ptxas`` reports them; beside them the probe
-   ``tools/dpx_rate.cu``, which then measures the results per SM per
-   clock of the two DPX instructions of the wavefront walk (K1-K6),
-   alone and in the walk's sw cell;
+   ``tools/dpx_rate.cu``, which then measures the instructions per SM
+   per clock of the two DPX instructions of the wavefront walk (K1-K6),
+   alone and in the walk's sw cell, and of the packed walk's (K7) s16x2
+   add-max and add-min, alone and in its cell of two cells;
 3. each kernel against its plain PyTorch version on the card, every
    output plane in score and end modes: all four algorithms at several
    query tiers, with edge target lengths and a 2500-residue self-hit
    (score > 12000), and calls that a small scratch budget splits into
-   several launches (K1, K2, K4, K5 and K6: at tiers of several passes,
-   which need their pass buffer); K1 at the fine tiers 4608/5120/6144; K3
+   several launches (K1, K2, K4-K7: at tiers of several passes, which
+   need their pass buffer); K1 at the fine tiers 4608/5120/6144; K3
    segment by segment (scores, ends, the boundary rows and the trackers
    it hands on) at 32- and 64-row segments, and at 2048 rows (8 passes
    of the walk) for a 6,500-residue query against two 4,000-residue
@@ -33,7 +34,8 @@ Phases (the first failure ends the run with a nonzero exit code):
    and -1/2 (which walks every row, ends included), tiers 64 to 2048
    (K4) and 1024 and 4096 (K5), and with a random 32 x 32 matrix over
    targets that hold symbol
-   31 as a real letter; K7 (the narrow pass) at gaps 3/1, 0/0 and
+   31 as a real letter; K7 (the narrow pass) at tiers 64 to 1024 (one
+   pass, then two and four through its buffer) and gaps 3/1, 0/0 and
    255/255, its scores also held against min(K2's, 255);
 4. the golden values through `pyopal_tpu_torch.Aligner` on ``cuda``;
 5. the main path at full size: a synthetic 12,071-sequence database
@@ -71,16 +73,18 @@ Phases (the first failure ends the run with a nonzero exit code):
    its plain version on a 1,000-target slice); K7 on the main path's 8
    q8 groups, one query a 256-residue stretch of a target, its scores
    min(K2's, 255) and its flagged lanes counted;
-   then K1-K6 against their plain versions at full width where the
+   then K1-K7 against their plain versions at full width where the
    wavefront walk changes hands: query lengths on either side of a
    thread's 16 rows and of a pass (64, 128, 256 rows), through several
    passes (K1 up to 515 rows, K2's q8 groups up to 512, K3 a 2,563-row
    query in two segments, K4 up to 512 rows and K5 2,560-2,563 rows,
    both also at a negative gap, which walks every row; K6 at 17-512
    residues over the database stacked as one group, Q_pad 24 and 264
-   among them, also at a negative gap), on the main database and on a
-   tie-heavy database of 12,071 repeated-motif sequences at its lengths,
-   searched with motif queries;
+   among them, also at a negative gap; K7's pairs of slots of 16/17,
+   255/256 and 511/512 residues, a group of 7 queries, a group of
+   self-hits past the cap), on the main database and on a tie-heavy
+   database of 12,071 repeated-motif sequences at its lengths, searched
+   with motif queries;
 6. timings with CUDA events after a warm-up, each kernel held against
    its plain version at the main path's shapes (K3: one 2048-row
    segment of the 35,000-residue query; K6: the sharded path's 40
@@ -90,7 +94,9 @@ Phases (the first failure ends the run with a nonzero exit code):
    versions on a 1,000-target slice), the bound of each kernel over the
    cells its function needs (K5's walked rows reported apart; the
    wavefront walk's kernels, K1-K6, at their six DPX-fused instructions
-   a cell, their plain int32 bound beside it; K7 at the int32 rate),
+   a cell, their plain int32 bound beside it; K7 at 5.5 packed s16x2
+   instructions for two cells, with K2's bound and K2's time on the same
+   groups beside it),
    end-to-end throughput, long-query and sharded call times, and each
    kernel's launches in one ``align_arrays`` and one ``align`` call,
    counted;
@@ -116,8 +122,7 @@ GO, GE = 3, 1
 #: from the recurrence at its least: G = H - go (1 subtraction, shared by
 #: the next column's E and the next row's F), E = max(G, E - ge) (2), F =
 #: max(G, F - ge) (2), diagonal max(H + s, E) (2), clamp at 0 (1), H = max
-#: with F (1), running best (1): the bound of K7's one-thread loop, and
-#: ``int32_bound_ms`` of every kernel
+#: with F (1), running best (1): ``int32_bound_ms`` of every kernel
 OPS_PER_CELL_SW_SCORE = 10
 #: instructions per cell of the wavefront walk (``csrc/wave.cuh``: K1-K6)
 #: with Hopper's DPX add-max: E, F and the diagonal one
@@ -126,6 +131,14 @@ OPS_PER_CELL_SW_SCORE = 10
 #: measured by ``tools/dpx_rate.cu`` in this run (each DPX instruction
 #: alone, and the cell's six together)
 OPS_PER_CELL_WAVE = 6
+#: packed instructions per two cells of K7's walk (``csrc/wave.cuh``,
+#: NARROW: two int16 cells in each): E, F and the diagonal one s16x2
+#: add-max each, H = max(H, F, 0), G = min(H - go, 255 - go) one add-min,
+#: and half of a three-input packed max, which takes two rows' G into the
+#: running best (ptxas merges the unmasked walk's rows in pairs); its bound
+#: counts them at the highest of the int32 rate and the s16x2 rates
+#: ``tools/dpx_rate.cu`` measures in this run
+OPS_PER_PAIR_NARROW = 5.5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT32_LANES_PER_SM = 64
 N_SMS = 132
@@ -231,12 +244,19 @@ def start_dpx_probe(build_dir, nvcc, flags):
     return proc, lib
 
 
+#: the probe's modes: the walk's int32 DPX instructions and cell, then
+#: the packed walk's s16x2 ones and its cell of two cells
+DPX_MODES = ("viaddmax_s32", "vimax_s32_relu", "sw_cell", "viaddmax_s16x2",
+             "viaddmin_s16x2", "narrow_cell")
+
+
 def dpx_rates(lib, n_sms):
-    """Results per SM per clock of each DPX instruction of the wavefront
-    walk alone and of its sw cell's six instructions together
-    (``tools/dpx_rate.cu``): two 1024-thread blocks per SM, each SM's
-    results over the span of its blocks' clocks, the highest over the
-    SMs."""
+    """Instructions per SM per clock of each DPX instruction of the
+    wavefront walk alone and of its sw cell's six together, and of the
+    packed walk's s16x2 add-max and add-min alone and of two rows of its
+    cell, 5.5 instructions a row (``tools/dpx_rate.cu``): two 1024-thread
+    blocks per SM, each SM's instructions over the span of its blocks'
+    clocks, the highest over the SMs."""
     import ctypes
 
     import torch
@@ -254,10 +274,11 @@ def dpx_rates(lib, n_sms):
     clocks = torch.empty((blocks, 3), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rates = {}
-    for mode, name in enumerate(("viaddmax_s32", "vimax_s32_relu",
-                                 "sw_cell")):
-        # results a thread makes per step: chains x instructions
-        per_step = 4 * OPS_PER_CELL_WAVE if name == "sw_cell" else 8
+    for mode, name in enumerate(DPX_MODES):
+        # instructions a thread issues per step: chains x instructions (the
+        # packed cell: two rows a step)
+        per_step = {"sw_cell": 4 * OPS_PER_CELL_WAVE,
+                    "narrow_cell": 4 * 2 * OPS_PER_PAIR_NARROW}.get(name, 8)
         for _ in range(2):  # the first launch warms the card up
             err = fn(inp.data_ptr(), out.data_ptr(), clocks.data_ptr(), mode,
                      blocks, iters, stream)
@@ -333,10 +354,12 @@ def main():
     })
     # the rate at which the wavefront walk's bound counts its instructions
     dpx = dpx_rates(probe_lib, N_SMS)
-    wave_lanes = max(INT32_LANES_PER_SM, *dpx.values())
-    emit({"phase": "dpx_rate", "results_per_sm_clock": dpx,
+    wave_lanes = max(INT32_LANES_PER_SM, *(dpx[k] for k in DPX_MODES[:3]))
+    narrow_rate = max(INT32_LANES_PER_SM, *(dpx[k] for k in DPX_MODES[3:]))
+    emit({"phase": "dpx_rate", "instructions_per_sm_clock": dpx,
           "int32_lanes_per_sm": INT32_LANES_PER_SM,
-          "wave_bound_lanes_per_sm": wave_lanes, **card})
+          "wave_bound_lanes_per_sm": wave_lanes,
+          "narrow_bound_instructions_per_sm": narrow_rate, **card})
 
     S = pt.ScoringMatrix.from_name("BLOSUM50").int_data()
     algos = ("sw", "nw", "hw", "ov")
@@ -470,6 +493,29 @@ def main():
     ]
     long_seq = next(t for t in seqs if len(t) >= 256)
     k7_flagged = {}
+    k7_args = []  # the last call at gaps 3/1
+
+    def k7_cases(label, profs, qv, maxq, fp):
+        """K7, the narrow pass, at gaps 3/1, 0/0 and 255/255: against its
+        plain version, and its scores min(K2's, 255) on the same tensors;
+        one launch a call.  Returns the cases checked."""
+        for gaps in ((3, 1), (0, 0), (255, 255)):
+            args = (profs, qv, maxq, *dev_flat(fp), *gaps, "sw", False,
+                    fp.chunk, True)
+            before = q8.launches["q8_narrow"]
+            out, _ = compare("q8_narrow", q8.search_flat_q8,
+                             q8.search_flat_q8_reference, args,
+                             f"K7 {label} gaps={gaps}")
+            if q8.launches["q8_narrow"] != before + 1:
+                fail(f"K7 {label} gaps={gaps}: not one launch")
+            exact = q8.search_flat_q8(*args[:-1])[0]
+            if not torch.equal(out[0], exact.clamp(max=q8.NARROW_CAP)):
+                fail(f"K7 {label} gaps={gaps}: scores are not min(K2, 255)")
+            k7_flagged[f"{label} gaps={gaps}"] = int(
+                (out[0] == q8.NARROW_CAP).sum())
+            if gaps == (3, 1):
+                k7_args[:] = [args]
+        return 3
     for label, lanes, qls in k2_cases:
         fp = packing.pack_sequences_flat(seqs, lanes=lanes)
         queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
@@ -487,31 +533,27 @@ def main():
                     args, f"{label} {algo} ends={ends}")
                 n_checked += 1
         k2_args = args
-        # K7, the narrow pass: against its plain version, and its scores
-        # min(K2's, 255) on the same tensors
-        for gaps in ((3, 1), (0, 0), (255, 255)):
-            args = (profs, qv, maxq, *dev_flat(fp), *gaps, "sw", False,
-                    fp.chunk, True)
-            out, _ = compare("q8_narrow", q8.search_flat_q8,
-                             q8.search_flat_q8_reference, args,
-                             f"K7 {label} gaps={gaps}")
-            exact = q8.search_flat_q8(*args[:-1])[0]
-            if not torch.equal(out[0], exact.clamp(max=q8.NARROW_CAP)):
-                fail(f"K7 {label} gaps={gaps}: scores are not min(K2, 255)")
-            k7_flagged[f"{label} gaps={gaps}"] = int(
-                (out[0] == q8.NARROW_CAP).sum())
-            n_checked += 1
-        if label == "tier512":  # two passes: K2's pass buffer
-            split_cases.append((
-                "q8", q8.search_flat_q8, q8.search_flat_q8_reference,
-                k2_args, 8 * q8.QB * ragged.wave_buffer_rows(
-                    512, fp.flat_targets.shape[0], fp.n_blocks),
-                fp.lengths.size))
-        if label == "tier64":  # two groups
-            split_cases.append((
-                "q8_narrow", q8.search_flat_q8, q8.search_flat_q8_reference,
-                args, 4 * profs.shape[1], fp.lengths.size))
-    if k7_flagged["tier256 gaps=(3, 1)"] < 1:
+        n_checked += k7_cases(label, profs, qv, maxq, fp)
+        if label == "tier512":  # two passes: K2's and K7's pass buffers
+            for name, slots, a in (("q8", q8.QB, k2_args),
+                                   ("q8_narrow", q8.QB // 2, k7_args[0])):
+                split_cases.append((
+                    name, q8.search_flat_q8, q8.search_flat_q8_reference, a,
+                    8 * slots * ragged.wave_buffer_rows(
+                        512, fp.flat_targets.shape[0], fp.n_blocks),
+                    fp.lengths.size))
+    # K7 at the 1024 tier: four passes through its buffer, one query a
+    # stretch of a target past the cap
+    fp = packing.pack_sequences_flat(seqs, lanes=512)
+    qls = [1024, 700, 513, 1000, 9, 600, 800, 250, 300, 520]
+    queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
+    queries[7] = long_seq[:250].copy()
+    arrays = q8.make_profiles_q8_host(queries, S, q8.plan_groups(qls),
+                                      lanes=512)
+    n_checked += k7_cases(
+        "tier1024", *(torch.from_numpy(a).to(dev) for a in arrays), fp)
+    if min(k7_flagged[f"{t} gaps={g}"] for t in ("tier256", "tier1024")
+           for g in ((3, 1), (0, 0), (255, 255))) < 1:
         fail(f"K7 flagged no lane: {k7_flagged}")
 
     # K4 and K5 (no safe_pad): every algorithm, both modes where the
@@ -1178,7 +1220,7 @@ def main():
           "k7_lanes": int(k7[0].numel()),
           "equal": True, "seconds": time.perf_counter() - t0, **card})
 
-    # --- 5e. K1-K6 at the walk's pass boundaries, full width ----------------
+    # --- 5e. K1-K7 at the walk's pass boundaries, full width ----------------
     # query lengths on either side of a thread's 16 rows and of a pass
     # (64, 128 and 256 rows at G = 4, 8 and 16), through several passes,
     # against the main database; and a tie-heavy database of 12,071
@@ -1279,6 +1321,48 @@ def main():
             if q8.launches["q8"] != before + 1:
                 fail(f"K2 {label}: not one launch")
             edge_cases["K2"][f"{label} {algo} ends={ends}"] = 1
+    # K7: pairs of slots whose lengths straddle a thread's 16 rows and a
+    # pass (16/17, 255/256, 511/512: each pair walks its longer slot's
+    # rows), a group of 7 queries (slot 7 empty beside slot 6), a group of
+    # self-hits (stretches of database sequences, past the cap), and motif
+    # queries on the tie-heavy database; each against its plain version
+    # and min(K2's, 255), one launch a call
+    edge_cases["K7"] = {}
+    hits = [db.get_encoded(int(i))[:n].copy() for i, n in zip(
+        np.nonzero(lengths_all >= 300)[0][:8],
+        (256, 250, 240, 200, 180, 160, 140, 130))]
+    for label, fpk, qs, gaps_list in (
+        ("pairs 512/511, 256/255, 17/16", fpw_full,
+         [edge_query(n) for n in (512, 511, 256, 255)]
+         + [edge_query(17, False), edge_query(16, False)],
+         ((GO, GE), (0, 0), (255, 255))),
+        ("7 queries, tier 128", fpw_full,
+         [edge_query(n) for n in (128, 120, 100, 90, 80, 70, 65)],
+         ((GO, GE),)),
+        ("self-hits, tier 256", fpw_full, hits,
+         ((GO, GE), (0, 0), (255, 255))),
+        ("tie-heavy tier 512: 259-512", fpw_tie,
+         [tie_query(n) for n in (259, 512, 260, 300, 333, 400, 500, 511)],
+         ((GO, GE), (0, 0))),
+    ):
+        groups = q8.plan_groups([len(q) for q in qs])
+        k7e = tuple(torch.from_numpy(a).to(dev) for a in
+                    q8.make_profiles_q8_host(qs, S, groups, lanes=512))
+        for gaps in gaps_list:
+            args = (*k7e, *dev_flat(fpk), *gaps, "sw", False, fpk.chunk)
+            before = q8.launches["q8_narrow"]
+            out, _ = compare("q8_narrow", q8.search_flat_q8,
+                             q8.search_flat_q8_reference, (*args, True),
+                             f"K7 {label} gaps={gaps}")
+            if q8.launches["q8_narrow"] != before + 1:
+                fail(f"K7 {label}: not one launch")
+            exact = q8.search_flat_q8(*args)[0]
+            if not torch.equal(out[0], exact.clamp(max=q8.NARROW_CAP)):
+                fail(f"K7 {label} gaps={gaps}: scores are not min(K2, 255)")
+            edge_cases["K7"][f"{label} gaps={gaps}"] = int(
+                (out[0] == q8.NARROW_CAP).sum())
+    if min(v for k, v in edge_cases["K7"].items() if "self-hits" in k) < 8:
+        fail(f"K7's self-hits flagged too few lanes: {edge_cases['K7']}")
     # K5: 2,560-2,563 rows at the 4096 tier (a pass ends at row 2,560;
     # the walk stops in the pass that holds row Q - 1), every algorithm;
     # then a negative gap, which walks all 4,096 rows (the pad rows count
@@ -1405,19 +1489,27 @@ def main():
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / n
 
-    def bound(cells, n_bytes, wave=False):
-        """The least time of ``cells`` DP cells and ``n_bytes`` moved:
-        plain int32 operations (K7's one-thread loop), or (``wave``) the
-        wavefront walk's DPX-fused instructions, with its plain int32
-        bound beside it as ``int32_bound_ms``."""
-        ops, lanes = ((OPS_PER_CELL_WAVE, wave_lanes) if wave else
-                      (OPS_PER_CELL_SW_SCORE, INT32_LANES_PER_SM))
+    #: instructions per cell and their rate a SM a clock, by walk: the
+    #: plain int32 loop, the wavefront walk's DPX-fused cell (K1-K6) and
+    #: its packed s16x2 form, two cells an instruction (K7)
+    walks = {"int32": (OPS_PER_CELL_SW_SCORE, INT32_LANES_PER_SM),
+             "wave": (OPS_PER_CELL_WAVE, wave_lanes),
+             "narrow": (OPS_PER_PAIR_NARROW / 2, narrow_rate)}
+
+    def bound(cells, n_bytes, walk="wave"):
+        """The least time of ``cells`` DP cells of ``walk`` and ``n_bytes``
+        moved, with the plain int32 bound beside it as ``int32_bound_ms``
+        and, for the packed walk (K7), K2's wave bound on the same cells
+        as ``k2_wave_bound_ms``."""
+        ops, lanes = walks[walk]
         ops_ms = ops * cells / (N_SMS * lanes * max_sm_mhz * 1e6) * 1e3
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         out = {"ops": ops * cells, "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
-        if wave:
-            out["int32_bound_ms"] = bound(cells, n_bytes)["bound_ms"]
+        if walk != "int32":
+            out["int32_bound_ms"] = bound(cells, n_bytes, "int32")["bound_ms"]
+        if walk == "narrow":
+            out["k2_wave_bound_ms"] = bound(cells, n_bytes)["bound_ms"]
         return out
 
     results = {}
@@ -1444,7 +1536,7 @@ def main():
             "ms": ms, "plain_ms": plain_ms, "max_abs_err": max(errs),
             "cells": cells, "gcups": cells / (ms * 1e-3) / 1e9,
             "bytes": in_bytes + out_bytes,
-            **bound(cells, in_bytes + out_bytes, wave=True),
+            **bound(cells, in_bytes + out_bytes),
             # the walk: threads per target, rows per thread
             "wave": {"G": ragged.wave_group(q_pad), "R": ragged.WAVE_R},
         }
@@ -1459,7 +1551,8 @@ def main():
     # bound) count the query rows the function needs; K5's walk stops at
     # the pass that holds row 2,999 (12 passes of 256 rows of the 4096
     # tier's 16, the TPU kernel walks all 4,096), reported apart as walked
-    # cells.  K4 and K5 run the wavefront walk, K7 its one-thread loop.
+    # cells.  K4 and K5 run the wavefront walk, K7 its packed form, timed
+    # beside K2 on the same groups.
     fps512 = packing.pack_database_slice_flat(db, lo, hi, lanes=lanes_q8)
     walked_rows = {"ragged_strip": -(-3000 // 256) * 256}
     new_shapes = {  # name: (inputs, packs, query rows, modes on the slice)
@@ -1496,16 +1589,21 @@ def main():
         out_bytes = 3 * 4 * out[0].numel()
         in_bytes = (fpk.flat_targets.size + fpk.lengths.nbytes
                     + sum(t.numel() * t.element_size() for t in base))
+        narrow = key == "q8_narrow"
         results[key] = {
             "ms": ms, "plain_ms": plain_seconds[key] * 1e3,
             "max_abs_err": max(errs), "cells": cells,
             "gcups": cells / (ms * 1e-3) / 1e9,
             "bytes": in_bytes + out_bytes,
-            **bound(cells, in_bytes + out_bytes, wave=key != "q8_narrow"),
+            **bound(cells, in_bytes + out_bytes,
+                    "narrow" if narrow else "wave"),
+            # the walk: threads per target (pair of slots for K7), rows each
+            "wave": {"G": ragged.wave_group(
+                base[0].shape[1] // (q8.QB if narrow else 1)),
+                "R": ragged.WAVE_R},
         }
-        if key != "q8_narrow":  # the walk: threads per target, rows each
-            results[key]["wave"] = {"G": ragged.wave_group(base[0].shape[1]),
-                                    "R": ragged.WAVE_R}
+        if narrow:  # K2 on the same groups, the same run
+            results[key]["k2_ms"] = time_launches(kfn, args[:-1], 3)
         if key in walked_rows:
             walked = walked_rows[key] * residues
             results[key].update(walked_cells=walked,
@@ -1544,9 +1642,8 @@ def main():
         "ms": ms, "plain_ms": plain_seconds["ragged_long"] * 1e3,
         "max_abs_err": max(errs + k3_errs), "cells": cells,
         "gcups": cells / (ms * 1e-3) / 1e9,
-        "bytes": n_bytes, **bound(cells, n_bytes, wave=True),
-        "per_call_bound_ms": bound(35000 * residues, 18 * n_bytes,
-                                   wave=True)["bound_ms"],
+        "bytes": n_bytes, **bound(cells, n_bytes),
+        "per_call_bound_ms": bound(35000 * residues, 18 * n_bytes)["bound_ms"],
         "wave": {"G": ragged.wave_group(qseg), "R": ragged.WAVE_R},
     }
     emit({"phase": "kernel_timing", "kernel": "ragged_long",
@@ -1589,7 +1686,7 @@ def main():
     path_lanes = sum(a[2].numel() for a in k6_path_args)
     path_bytes = (residues + 4 * path_lanes
                   + len(k6_path_args) * pq[0].numel() * 4 + 3 * 4 * path_lanes)
-    path_bound = bound(cells, path_bytes, wave=True)
+    path_bound = bound(cells, path_bytes)
 
     full_l = k6_full[1]  # phase 5e's stacked group
     base = (pq, *k6_full, GO, GE, "sw")
@@ -1610,7 +1707,7 @@ def main():
     groups_ms = time_launches(k6_groups, (), 3)
     n_bytes = (residues + 4 * full_l.numel() + pq[0].numel() * 4
                + 3 * 4 * full_l.numel())
-    stacked_bound = bound(cells, n_bytes, wave=True)
+    stacked_bound = bound(cells, n_bytes)
     results["group"] = {
         "ms": path_ms, "plain_ms": k6_path_plain_s * 1e3,
         "max_abs_err": max(errs + k6_path_errs), "cells": cells,
@@ -1732,7 +1829,8 @@ def main():
             "bound_by": r["bound_by"], "library_ms": None,
             "checked_against_plain": True,
             **{k: v for k, v in r.items()
-               if k in ("shape", "wave", "int32_bound_ms")
+               if k in ("shape", "wave", "int32_bound_ms",
+                        "k2_wave_bound_ms", "k2_ms")
                or k.startswith("stacked_")},
         })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

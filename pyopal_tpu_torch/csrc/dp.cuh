@@ -1,7 +1,7 @@
 // The trackers and the finish that every int32 kernel shares (Track,
 // track_start, dp_finish: K1-K6 on wave.cuh), the dispatch of a kernel
 // template over (algorithm, mode), and the constants, which K7
-// (q8_narrow.cu) also takes.
+// (q8_narrow.cu, wave.cuh's packed walk) takes too.
 //
 // Tie-breaking: max score, then min target column, then min query row,
 // the rule of the reference oracle (pyopal_tpu/ops/naive.py).  The

@@ -14,106 +14,137 @@
 // Below the cap nothing clamps, and the first cell whose true H reaches
 // it has exact predecessors, so it stores 255.
 //
-// Arithmetic, int32 in registers and int16 in the scratch:
-// - H in [0, 255] (sw clamps at 0, the cap above);
-// - E and F start from FLOOR = -512 instead of -infinity, which int16
-//   cannot hold; any floor at or below -(go + ge) gives the same result,
-//   because H >= 0 makes H - go win every max with the floor (gaps in
-//   [0, 255], checked by the wrapper), so stored E lies in [-255, 255];
-// - profile entries are clamped into [-1024, 1024] as they are loaded:
+// What bounds it on an H100: operations.  It is K2's DP with two cells in
+// each instruction: six packed DPX instructions for a pair of cells, 5.5
+// where ptxas takes two rows' G into the running best with one
+// three-input max (under three a cell, K2's six), against one byte of
+// target per column of each lane per pair of queries.
+//
+// Design: the wavefront walk of wave.cuh in its packed form (NARROW), as
+// K2 walks it otherwise.  Each pair of slots (2p, 2p + 1) of a group is
+// one walk of two queries: a group of G threads per (group, pair, target
+// lane), 16 query rows per thread in registers, each int two int16
+// halves (low: slot 2p, high: slot 2p + 1), no per-cell state in device
+// memory.  The grid is (lane blocks, 4 pairs, groups); a CUDA block is
+// 256 threads, 256 / G lanes of one (group, pair).  G comes from the tier
+// (ops/ragged.py: wave_group): 4, 8 and 16 at 64, 128 and 256 rows, one
+// pass and no buffer; the 512 and 1024 tiers take 2 and 4 passes through
+// a buffer of packed G and F per (group, pair, target column), laid out
+// like the flat targets, which the wrapper allocates only then and splits
+// within a fixed budget (ops/ragged.py: SCRATCH_BYTES, wave_buffer), as
+// K2's.  The finish unpacks the tracker's halves, sign-extended, and adds
+// go back.
+//
+// Rows walked: a pair walks rows [0, max(Q_2p, Q_2p+1)), and the rows
+// past the walk are masked.  The shorter slot's rows past its own length
+// are its profile's PAD_SCORE rows (empty slots: every row), clamped to
+// -1024 below.  They cannot move its score: at gaps >= 0, which are all
+// this pass takes, every cell of a pad row is at most the best cell of
+// the query's last row at a column no later (the induction in
+// ragged_v1.cu, "Which rows the walk covers": a diagonal move into a pad
+// row adds the clamped -1024 < 0, a gap move subtracts go or ge >= 0),
+// and no cell of a query row depends on a pad row.  The cap keeps that
+// induction: min(., 255) is monotone, so a capped pad-row cell is still at
+// most the capped best of the query's rows.  So both halves are tracked
+// over every walked row.  An empty slot (Q = 0) has pad rows only, where
+// every cell is 0 by the same induction: it reads 0, the score
+// track_start<SW> gives it, as does a pair with no rows.
+//
+// Arithmetic, in int16 halves (gaps in [0, 255], checked here and by the
+// wrapper; no intermediate leaves [-32768, 32767], so whether an s16x2
+// add wraps or saturates never matters):
+// - profile entries are clamped into [-1024, 1024] as they are staged:
 //   an entry beyond +1024 takes the diagonal past the cap, one below
-//   -1024 takes it below 0, either way as the entry itself would.
+//   -1024 takes it below 0, either way as the entry itself would; s + go
+//   lies in [-1024, 1279];
+// - G = min(H, 255) - go lies in [-255, 255 - go] (H in [0, 255] after
+//   the cap; sw clamps at 0); the tracker holds G, from -go;
+// - E and F start from the floor -512 instead of -infinity; any floor at
+//   or below -(go + ge) gives the same result, because G >= -go wins
+//   every max with floor - ge; E - ge, F - ge, E and F lie in [-767, 255];
+// - G_diag + s + go lies in [-1279, 1534], H = max(that, E, F, 0) in
+//   [0, 1534], H - go in [-255, 1534] before the add-min caps it.
 //
-// What bounds it on an H100: operations (10 int32 operations per cell),
-// against one byte of target per column of each lane per query.  The
-// one-thread walk's int2 H/E scratch (8 bytes a cell, loaded and stored,
-// in device memory at the main path's 1.6 GB) set the time of K2 before
-// K2 moved to wave.cuh; here the scratch is short2, 4 bytes a cell, so
-// its traffic halves.
-//
-// Design: one thread per (group, slot, lane), 128 threads per block,
-// columns outer and rows inner, the row loop bounded by the slot's own
-// length; scratch [group * 8 + slot][row][lane] short2 over the launch's
-// groups and lane range, split within a fixed budget by the wrapper
-// (ops/ragged.py: SCRATCH_BYTES, launch_plan).
-#include "dp.cuh"
+// ptxas (CUDA 12.8, sm_90a, -O3): see PERF.md (chip_smoke.py's build
+// phase prints it).
+#include "wave.cuh"
 
 namespace pyopal {
 
 constexpr int QB_NARROW = 8;
-constexpr int NARROW_CAP = 255;
-constexpr int FLOOR = -512;
-constexpr int PROF_CLAMP = 1024;
+constexpr int PAIRS = QB_NARROW / 2;
+constexpr int NARROW_CAP = WAVE_CAP;
 
-__global__ void __launch_bounds__(128) q8_narrow_kernel(
+__global__ void __launch_bounds__(WAVE_THREADS) q8_narrow_kernel(
     const int* __restrict__ profs, const int* __restrict__ qv,
     const uint8_t* __restrict__ flat, const int* __restrict__ lengths,
     const int* __restrict__ row_off, int* __restrict__ scores,
-    int* __restrict__ qends, int* __restrict__ tends,
-    short2* __restrict__ scratch, int q_pad, int n_blocks, int lanes,
-    int lane0, int lane_count, int go, int ge) {
+    int* __restrict__ qends, int* __restrict__ tends, int* pbuf, int q_pad,
+    int n_blocks, int lanes, int lane0, int lane_count, int total_rows,
+    int G, int go, int ge) {
+  __shared__ int4 sp[WAVE_SMEM_INT4];
   const int n_lanes = n_blocks * lanes;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;  // lane of the launch
-  const int n = lane0 + k;                              // global lane
-  const int slot = blockIdx.y;
+  const int k = blockIdx.x * (WAVE_THREADS / G) + threadIdx.x / G;
+  const int n = lane0 + k;  // global lane
+  const int pair = blockIdx.y;
   const int g = blockIdx.z;
-  if (k >= lane_count || n >= n_lanes) return;
-  const int b = n / lanes;
-  const int lane = n - b * lanes;
-  const int gs = g * QB_NARROW + slot;
-  const int Q = min(qv[(size_t)gs * lanes], q_pad);  // lane 0 of the slot
-  const int len = lengths[n];
-  const int prof_stride = QB_NARROW * ALPHA;
-  const int* __restrict__ prof =
-      profs + (size_t)g * QB_NARROW * q_pad * ALPHA + slot * ALPHA;
-  const uint8_t* __restrict__ tgt = flat + (size_t)row_off[b] * lanes + lane;
-  short2* __restrict__ scr = scratch + (size_t)gs * q_pad * lane_count + k;
-  const size_t stride = (size_t)lane_count;
-
-  for (int i = 0; i < Q; ++i) scr[i * stride] = make_short2(0, FLOOR);
-  int best = 0;
-  for (int j = 0; j < len; ++j) {
-    const int* __restrict__ p = prof + tgt[(size_t)j * lanes];
-    int hdiag = 0, hup = 0, f = FLOOR;  // sw: row 0 is 0
-    for (int i = 0; i < Q; ++i) {
-      const short2 he = scr[i * stride];
-      const int e = max(he.x - go, he.y - ge);
-      const int s = min(max(__ldg(p + i * prof_stride), -PROF_CLAMP),
-                        PROF_CLAMP);
-      f = max(hup - go, f - ge);
-      const int h = min(max(max(hdiag + s, e), max(f, 0)), NARROW_CAP);
-      hdiag = he.x;
-      hup = h;
-      scr[i * stride] = make_short2((short)h, (short)e);
-      best = max(best, h);
-    }
+  const int gs = g * QB_NARROW + 2 * pair;  // the pair's low slot
+  const bool valid = k < lane_count && n < n_lanes;
+  const int b = valid ? n / lanes : 0;
+  const int lane = valid ? n - b * lanes : 0;
+  const int len = valid ? lengths[n] : 0;
+  // lane 0 of each slot: the pair walks its longer query's rows
+  const int Q = min(max(qv[(size_t)gs * lanes], qv[(size_t)(gs + 1) * lanes]),
+                    q_pad);
+  const size_t col0 = (size_t)row_off[b] * lanes + lane;
+  // this (group, pair, lane)'s pass buffer: [group][pair][G, F][row][lane]
+  const size_t cells = (size_t)total_rows * lanes;
+  int* pb_h = pbuf == nullptr
+                  ? nullptr
+                  : pbuf + 2 * cells * (g * PAIRS + pair) + col0;
+  int* pb_f = pb_h == nullptr ? nullptr : pb_h + cells;
+  Track t{wave_splat(-go), 0, -1, -1, -1};
+  wave_walk<SW, false, false, QB_NARROW * ALPHA, false, false, true>(
+      sp, profs + ((size_t)g * QB_NARROW * q_pad + 2 * pair) * ALPHA, q_pad,
+      0, Q, Q, flat + col0, lanes, len, nullptr, nullptr, pb_h, pb_f, G, go,
+      ge, t);
+  if (valid && (threadIdx.x & (G - 1)) == 0) {
+    const size_t out =
+        (((size_t)g * n_blocks + b) * QB_NARROW + 2 * pair) * lanes + lane;
+    scores[out] = wave_lo(t.best) + go;
+    scores[out + lanes] = wave_hi(t.best) + go;
+    qends[out] = qends[out + lanes] = -1;
+    tends[out] = tends[out + lanes] = -1;
   }
-  const size_t out = (((size_t)g * n_blocks + b) * QB_NARROW + slot) * lanes
-                     + lane;
-  scores[out] = best;
-  qends[out] = -1;
-  tends[out] = -1;
 }
 
 }  // namespace pyopal
 
 using namespace pyopal;
 
-// The launch's groups and lane range with their short2 scratch; the pass
-// exists for sw score only (algorithm SW, with_ends 0).
+// K2's shape of arguments (pyopal_q8_launch): the launch's groups, the
+// pass buffer (nullptr when the tier fits one pass), the flat layout's
+// total rows and the group size; the pass exists for sw score only
+// (algorithm SW, with_ends 0) with gaps in [0, NARROW_CAP].
 extern "C" int pyopal_q8_narrow_launch(
     const int* profs, const int* qv, const uint8_t* flat, const int* lengths,
-    const int* row_off, int* scores, int* qends, int* tends,
-    short2* scratch, int n_groups, int q_pad, int n_blocks, int lanes,
-    int lane0, int lane_count, int go, int ge, int algorithm, int with_ends,
-    void* stream) {
-  if (algorithm != SW || with_ends) return (int)cudaErrorInvalidValue;
+    const int* row_off, int* scores, int* qends, int* tends, int* pbuf,
+    int n_groups, int q_pad, int n_blocks, int lanes, int lane0,
+    int lane_count, int go, int ge, int algorithm, int with_ends,
+    int total_rows, int group, void* stream) {
+  if (algorithm != SW || with_ends || go < 0 || go > NARROW_CAP || ge < 0 ||
+      ge > NARROW_CAP)
+    return (int)cudaErrorInvalidValue;
   if (n_groups == 0 || lane_count <= 0) return 0;
-  const dim3 block(128);
-  const dim3 grid((lane_count + 127) / 128, QB_NARROW, n_groups);
+  if (group < 2 || group > WAVE_MAX_G || (group & (group - 1)))
+    return (int)cudaErrorInvalidValue;
+  if (q_pad > group * WAVE_R && pbuf == nullptr)
+    return (int)cudaErrorInvalidValue;  // several passes need the buffer
+  const int per_block = WAVE_THREADS / group;
+  const dim3 grid((lane_count + per_block - 1) / per_block, PAIRS, n_groups);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  q8_narrow_kernel<<<grid, block, 0, s>>>(
-      profs, qv, flat, lengths, row_off, scores, qends, tends, scratch,
-      q_pad, n_blocks, lanes, lane0, lane_count, go, ge);
+  q8_narrow_kernel<<<grid, dim3(WAVE_THREADS), 0, s>>>(
+      profs, qv, flat, lengths, row_off, scores, qends, tends, pbuf, q_pad,
+      n_blocks, lanes, lane0, lane_count, total_rows, group, go, ge);
   return (int)cudaGetLastError();
 }

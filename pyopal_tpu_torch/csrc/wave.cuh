@@ -1,8 +1,9 @@
 // The wavefront walk of K1 (ragged.cu), K2 (q8.cu), K3 (ragged_long.cu),
-// K4 (ragged_v1.cu), K5 (ragged_strip.cu) and K6 (group.cu): a group of G
-// threads per (query, target) with the query rows in registers.  K2's
-// queries are the (group, slot) pairs of its row-interleaved profiles (a
-// profile row stride of 8 x 32 ints).
+// K4 (ragged_v1.cu), K5 (ragged_strip.cu), K6 (group.cu) and, in its
+// packed 16-bit form, K7 (q8_narrow.cu): a group of G threads per (query,
+// target) with the query rows in registers.  K2's queries are the (group,
+// slot) pairs of its row-interleaved profiles (a profile row stride of 8 x
+// 32 ints); K7's are pairs of slots, two queries in each register.
 //
 // Why: one thread per target (the kernels' first design) gives a
 // single-query launch ~12K threads for a 12,071-sequence database, under
@@ -44,6 +45,21 @@
 //   cell is E = max(E - ge, G_left), F = max(F - ge, G_up), H =
 //   max(G_diag + (s + go), E), H = max(H, F[, 0]), G = H - go, and sw's
 //   running best: six instructions.
+//
+// NARROW (K7, sw score only, H capped at 255): every int of the row
+// arrays, of the values handed down and of the tracker holds two int16
+// halves, the low one of slot 2p of a q8 group and the high one of slot
+// 2p + 1 (wave_stage packs their profile rows), walked over the same
+// target column.  The shuffles move both halves unchanged; the arithmetic
+// is Hopper's packed DPX (__viaddmax_s16x2, __vimax_s16x2_relu,
+// __viaddmin_s16x2) and a packed max, with the floor WAVE_FLOOR for
+// -infinity and G = min(H, 255) - go folded into one add-min.  A cell is
+// E = max(E - ge, G_left), F = max(F - ge, G_up), H = max(G_diag + (s +
+// go), E), H = max(H, F, 0), G = min(H - go, 255 - go) and best =
+// max(best, G): six instructions for two cells.  The tracker holds G (its
+// start, -go, is the score 0), the buffer between passes holds G and F of
+// the pass's last row, and no value leaves int16 (the ranges are in
+// q8_narrow.cu).
 //
 // Trackers keep dp.cuh's rule: max score, then the lowest target column,
 // then the lowest query row.  Each thread tracks its own rows over its
@@ -89,6 +105,33 @@ __device__ __forceinline__ int wave_max_relu(int a, int b) {
   return __vimax_s32_relu(a, b);
 }
 
+// NARROW: two int16 halves in one int (low: slot 2p, high: slot 2p + 1)
+constexpr int WAVE_FLOOR = -512;  // E and F's -infinity: any <= -(go + ge)
+constexpr int WAVE_CLAMP = 1024;  // profile entries are clamped into +-this
+constexpr int WAVE_CAP = 255;     // H is held at most this (NARROW_CAP)
+__device__ __forceinline__ int wave_pack(int lo, int hi) {
+  return (int)(((unsigned)lo & 0xffffu) | ((unsigned)hi << 16));
+}
+__device__ __forceinline__ int wave_splat(int v) { return wave_pack(v, v); }
+// the halves, sign-extended
+__device__ __forceinline__ int wave_lo(int v) { return (v << 16) >> 16; }
+__device__ __forceinline__ int wave_hi(int v) { return v >> 16; }
+// max(a + b, c), max(a, b, 0), min(a + b, c) and max(a, b) on each half
+__device__ __forceinline__ int wave_addmax2(int a, int b, int c) {
+  return (int)__viaddmax_s16x2((unsigned)a, (unsigned)b, (unsigned)c);
+}
+__device__ __forceinline__ int wave_max_relu2(int a, int b) {
+  return (int)__vimax_s16x2_relu((unsigned)a, (unsigned)b);
+}
+__device__ __forceinline__ int wave_addmin2(int a, int b, int c) {
+  return (int)__viaddmin_s16x2((unsigned)a, (unsigned)b, (unsigned)c);
+}
+__device__ __forceinline__ int wave_max2(int a, int b) {
+  int r;
+  asm("max.s16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
 // (score desc, column asc, row asc): whether a comes before b
 __device__ __forceinline__ bool wave_first(int as, int aj, int ai, int bs,
                                            int bj, int bi) {
@@ -98,8 +141,10 @@ __device__ __forceinline__ bool wave_first(int as, int aj, int ai, int bs,
 // Stages profile rows [base, base + G * R) of the walk (rows past
 // prof_rows score WAVE_PAD) with go added, for every symbol.  Profile row
 // i starts at prof + i * PSTRIDE: ALPHA for K1, K3-K6, 8 * ALPHA for K2's
-// row-interleaved groups.
-template <int PSTRIDE = ALPHA>
+// and K7's row-interleaved groups.  NARROW: each entry holds two, of row i
+// (low half) and of the row ALPHA ints after it (high half: the next slot
+// of a q8 group), each clamped into [-WAVE_CLAMP, WAVE_CLAMP] before go.
+template <int PSTRIDE = ALPHA, bool NARROW = false>
 __device__ __forceinline__ void wave_stage(int4* sp,
                                            const int* __restrict__ prof,
                                            int prof_rows, int base, int G,
@@ -110,6 +155,20 @@ __device__ __forceinline__ void wave_stage(int4* sp,
   for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
     const int row = idx / ALPHA;  // within the pass
     const int sym = idx - row * ALPHA;
+    if (NARROW) {
+      int lo = WAVE_PAD, hi = WAVE_PAD;
+      if (base + row < prof_rows) {
+        const int* p = prof + (size_t)(base + row) * PSTRIDE + sym;
+        lo = __ldg(p);
+        hi = __ldg(p + ALPHA);
+      }
+      lo = min(max(lo, -WAVE_CLAMP), WAVE_CLAMP);
+      hi = min(max(hi, -WAVE_CLAMP), WAVE_CLAMP);
+      const int t = row / R, rr = row - t * R;
+      s[((sym * (R / 4) + (rr >> 2)) * G + t) * 4 + (rr & 3)] =
+          wave_pack(lo + go, hi + go);
+      continue;
+    }
     const int v = base + row < prof_rows
                       ? __ldg(prof + (size_t)(base + row) * PSTRIDE + sym)
                       : WAVE_PAD;
@@ -135,6 +194,7 @@ struct WaveThread {
   int lb, lbj, cap;               // hw/ov last row, nw terminal (owner)
   int oc, oci;                    // ov last column
   int rq;                         // PAD_ROWS: row Q - 1 in its thread
+  int ngo2, gcap2, nge2, floor2;  // NARROW: -go, 255 - go, -ge, the floor
 
   __device__ __forceinline__ void load_tiles(int col) {
     const bool in = col < len;
@@ -150,8 +210,9 @@ struct WaveThread {
 // (PAD_ROWS, the pass that holds row Q - 1): the thread that holds it
 // tracks that row, and the pass's owner writes the buffer.  MASK: rows
 // past the walk's last row, in the pass's owner and past it, are not
-// tracked; with QROW (PAD_TAIL) both hold.
-template <int ALG, bool ENDS, bool MASK, bool QROW = false>
+// tracked; with QROW (PAD_TAIL) both hold.  NARROW: the packed form.
+template <int ALG, bool ENDS, bool MASK, bool QROW = false,
+          bool NARROW = false>
 __device__ __forceinline__ void wave_step(WaveThread& w, int s,
                                           const int (&Gi)[WAVE_R],
                                           int (&Go)[WAVE_R],
@@ -168,7 +229,13 @@ __device__ __forceinline__ void wave_step(WaveThread& w, int s,
   }
   const int sym0 = __shfl_sync(WAVE_FULL, w.ts_cur, src, G);
   int gtop, ftop;
-  if (w.top) {
+  if (NARROW && w.top) {  // sw's row 0: H = 0
+    gtop = w.ngo2;
+    ftop = w.floor2;
+  } else if (NARROW) {  // the buffer holds G
+    gtop = __shfl_sync(WAVE_FULL, w.th_cur, src, G);
+    ftop = __shfl_sync(WAVE_FULL, w.tf_cur, src, G);
+  } else if (w.top) {
     gtop = (kPenRow ? -(w.go + s * w.ge) : 0) - w.go;
     ftop = NEG;
   } else {
@@ -192,7 +259,7 @@ __device__ __forceinline__ void wave_step(WaveThread& w, int s,
   }
 
   const int4* ps = w.sp + sym * (R / 4) * G + w.t;
-  const int go = w.go, nge = -w.ge;
+  const int go = w.go, nge = NARROW ? w.nge2 : -w.ge;
   int gd = w.gdiag;
   w.gdiag = gup;
   const int best0 = w.pb;
@@ -204,6 +271,17 @@ __device__ __forceinline__ void wave_step(WaveThread& w, int s,
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int r = 4 * k + c;
+      if (NARROW) {
+        const int e = wave_addmax2(E[r], nge, Gi[r]);
+        E[r] = e;
+        f = wave_addmax2(f, nge, gup);
+        const int h = wave_max_relu2(wave_addmax2(gd, pv[c], e), f);
+        gd = Gi[r];
+        Go[r] = wave_addmin2(h, w.ngo2, w.gcap2);
+        gup = Go[r];
+        if (!MASK || r < w.nv) w.pb = wave_max2(w.pb, gup);
+        continue;
+      }
       const int e = wave_addmax(E[r], nge, Gi[r]);
       E[r] = e;
       f = wave_addmax(f, nge, gup);
@@ -272,7 +350,7 @@ __device__ __forceinline__ void wave_step(WaveThread& w, int s,
     } else {
       fq = f;
     }
-    const int hq = gq + go;
+    const int hq = NARROW ? gq : gq + go;  // NARROW: the buffer holds G
     if (w.track_last) {
       if ((ALG == HW || ALG == OV) && hq > w.lb) {
         w.lb = hq;
@@ -287,14 +365,15 @@ __device__ __forceinline__ void wave_step(WaveThread& w, int s,
   }
 }
 
-template <int ALG, bool ENDS, bool MASK, bool QROW = false>
+template <int ALG, bool ENDS, bool MASK, bool QROW = false,
+          bool NARROW = false>
 __device__ __forceinline__ void wave_pass(WaveThread& w, int nsteps,
                                           int (&GA)[WAVE_R],
                                           int (&GB)[WAVE_R],
                                           int (&E)[WAVE_R]) {
   for (int s = 0; s < nsteps; s += 2) {  // nsteps is even
-    wave_step<ALG, ENDS, MASK, QROW>(w, s, GA, GB, E);
-    wave_step<ALG, ENDS, MASK, QROW>(w, s + 1, GB, GA, E);
+    wave_step<ALG, ENDS, MASK, QROW, NARROW>(w, s, GA, GB, E);
+    wave_step<ALG, ENDS, MASK, QROW, NARROW>(w, s + 1, GB, GA, E);
   }
 }
 
@@ -321,9 +400,12 @@ __device__ __forceinline__ void wave_pass(WaveThread& w, int nsteps,
 // PAD_TAIL (K4, K6): with PAD_ROWS, rows may end inside a thread (K6's
 //   profiles have a multiple of 8 rows): the pass that holds row Q - 1
 //   may then also be the final pass, which masks the rows past the walk.
+// NARROW (K7): the packed walk of two queries, profile rows prof and prof
+//   + ALPHA ints (sw score only, gaps in [0, 255]); trk.best is the packed
+//   tracker of G = min(H, 255) - go, -go in both halves on entry.
 // All G threads of a group return the same tracker.
 template <int ALG, bool ENDS, bool SEG_OUT, int PSTRIDE = ALPHA,
-          bool PAD_ROWS = false, bool PAD_TAIL = false>
+          bool PAD_ROWS = false, bool PAD_TAIL = false, bool NARROW = false>
 __device__ __forceinline__ void wave_walk(
     int4* sp, const int* __restrict__ prof, int prof_rows, int row0,
     int rows, int Q, const uint8_t* __restrict__ tgt, int stride, int len,
@@ -331,6 +413,8 @@ __device__ __forceinline__ void wave_walk(
     int ge, Track& trk) {
   constexpr int R = WAVE_R;
   constexpr bool kPenCol = ALG == NW || ALG == HW;
+  static_assert(!NARROW || (ALG == SW && !ENDS && !SEG_OUT && !PAD_ROWS),
+                "the packed walk is sw score-only");
   const int t = threadIdx.x & (G - 1);
   const int GR = G * R;
   const int n_pass = rows > 0 ? (rows + GR - 1) / GR : 0;
@@ -361,14 +445,21 @@ __device__ __forceinline__ void wave_walk(
   w.cap = trk.cap;
   w.oc = NEG;
   w.oci = INT_MAX;
+  if (NARROW) {
+    w.ngo2 = wave_splat(-go);
+    w.gcap2 = wave_splat(WAVE_CAP - go);
+    w.nge2 = wave_splat(-ge);
+    w.floor2 = wave_splat(WAVE_FLOOR);
+  }
   int sb = 0, sbi = -1, sbj = -1;  // sw: this thread's, over its passes
+  if (NARROW) sb = w.ngo2;
 
   int GA[R], GB[R], E[R];
   for (int p = 0; p < n_pass; ++p) {
     const int base = p * GR;
     const bool final_pass = p == n_pass - 1;
     __syncthreads();  // every group is done with the previous profile
-    wave_stage<PSTRIDE>(sp, prof, prof_rows, base, G, go);
+    wave_stage<PSTRIDE, NARROW>(sp, prof, prof_rows, base, G, go);
     __syncthreads();
     w.q0 = row0 + base + t * R;
     w.nv = min(max(row0 + rows - w.q0, 0), R);
@@ -386,12 +477,14 @@ __device__ __forceinline__ void wave_walk(
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int q = w.q0 + r;
-      GA[r] = (kPenCol ? -(go + q * ge) : 0) - go;
-      E[r] = NEG;
+      GA[r] = NARROW ? w.ngo2 : (kPenCol ? -(go + q * ge) : 0) - go;
+      E[r] = NARROW ? w.floor2 : NEG;
     }
-    w.gdiag = (w.q0 == 0 ? 0 : (kPenCol ? -(go + (w.q0 - 1) * ge) : 0)) - go;
+    w.gdiag = NARROW ? w.ngo2
+                     : (w.q0 == 0 ? 0 : (kPenCol ? -(go + (w.q0 - 1) * ge)
+                                                 : 0)) - go;
     w.out_g = 0;
-    w.out_f = NEG;
+    w.out_f = NARROW ? w.floor2 : NEG;
     w.out_sym = 0;
     w.pb = ALG == SW && !ENDS ? sb : 0;
     w.pbi = -1;
@@ -408,9 +501,9 @@ __device__ __forceinline__ void wave_walk(
     } else if (PAD_ROWS && p == pass_q) {
       wave_pass<ALG, ENDS, false, true>(w, nsteps, GA, GB, E);
     } else if (final_pass && rows % R != 0) {
-      wave_pass<ALG, ENDS, true>(w, nsteps, GA, GB, E);
+      wave_pass<ALG, ENDS, true, false, NARROW>(w, nsteps, GA, GB, E);
     } else {
-      wave_pass<ALG, ENDS, false>(w, nsteps, GA, GB, E);
+      wave_pass<ALG, ENDS, false, false, NARROW>(w, nsteps, GA, GB, E);
     }
     if (ALG == SW) {
       if (!ENDS) {
@@ -430,13 +523,17 @@ __device__ __forceinline__ void wave_walk(
       const int os = __shfl_xor_sync(WAVE_FULL, sb, m, G);
       const int oi = __shfl_xor_sync(WAVE_FULL, sbi, m, G);
       const int oj = __shfl_xor_sync(WAVE_FULL, sbj, m, G);
-      if (ENDS ? wave_first(os, oj, oi, sb, sbj, sbi) : os > sb) {
+      if (NARROW) {
+        sb = wave_max2(sb, os);
+      } else if (ENDS ? wave_first(os, oj, oi, sb, sbj, sbi) : os > sb) {
         sb = os;
         sbi = oi;
         sbj = oj;
       }
     }
-    if (!ENDS) {
+    if (NARROW) {
+      trk.best = wave_max2(trk.best, sb);
+    } else if (!ENDS) {
       trk.best = max(trk.best, sb);
     } else if (wave_first(sb, sbj, sbi, trk.best, trk.bj, trk.bi)) {
       trk.best = sb;

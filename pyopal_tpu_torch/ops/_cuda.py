@@ -54,7 +54,7 @@ KERNELS = {
     "group": ("pyopal_group_launch", [_P] * 7 + [_I] * 12 + [_P]),
     "ragged_v1": ("pyopal_ragged_v1_launch", [_P] * 9 + [_I] * 12 + [_P]),
     "ragged_strip": ("pyopal_ragged_strip_launch", [_P] * 9 + [_I] * 12 + [_P]),
-    "q8_narrow": ("pyopal_q8_narrow_launch", [_P] * 9 + [_I] * 10 + [_P]),
+    "q8_narrow": ("pyopal_q8_narrow_launch", [_P] * 9 + [_I] * 12 + [_P]),
 }
 
 _LOCK = threading.Lock()

@@ -15,13 +15,16 @@ q8 assembly are unchanged.  On the GPU the group of 8 has no hardware
 meaning: K2 walks each (group, slot) as one query of K1's wavefront walk
 (``csrc/wave.cuh``: a group of threads per (group, slot, target lane),
 its rows in registers, the walk ending at the slot's own length); K7
-gives each (group, slot, lane) one thread.
+walks each pair of slots (2p, 2p + 1) as one walk of the same kind in
+its packed 16-bit form, two queries in each register (Hopper's s16x2
+DPX instructions), to the pair's longer length.
 
 As in `pyopal_tpu_torch.ops.ragged`: `search_flat_q8` launches the
 kernel for CUDA tensors (counted in `launches` by kernel) and takes the
 plain version `search_flat_q8_reference` (K2's, or with ``narrow``
-K7's) for CPU tensors only (counted in `plain_calls`).  `wave_reference`
-is K2 as its kernel computes it, for the tests.
+K7's) for CPU tensors only (counted in `plain_calls`).
+`wave_reference` and `narrow_wave_reference` are K2 and K7 as their
+kernels compute them, for the tests.
 """
 
 from __future__ import annotations
@@ -34,9 +37,9 @@ from .ragged import (
     ALGO_CODES,
     ALPHA,
     PAD_SCORE,
+    WAVE_CAP,
     WAVE_R,
     check_flat,
-    launch_plan,
     profile_qpad,
     wave_buffer,
     wave_finish,
@@ -49,7 +52,7 @@ QB = 8  # queries per group
 #: largest query tier the kernel takes (reference ``MAX_QPAD``)
 MAX_QPAD = 1024
 #: the narrow pass's clamp on H (reference ``NARROW_CAP``)
-NARROW_CAP = 255
+NARROW_CAP = WAVE_CAP
 
 #: kernel launches made by `search_flat_q8` on CUDA tensors, by kernel
 #: (K2, and K7 with ``narrow``)
@@ -111,11 +114,11 @@ def search_flat_q8(
 ):
     """All query groups x the whole flat-packed database.
 
-    One kernel launch, or several where one launch's scratch (K2: its
-    pass buffer, at tiers beyond one pass of its walk; K7: its H/E
-    scratch) would exceed `ragged.SCRATCH_BYTES` (`ragged.launch_plan`);
-    each adds one to ``launches["q8"]`` (K2) or, with ``narrow``,
-    ``launches["q8_narrow"]`` (K7).
+    One kernel launch, or several where one launch's pass buffer (at
+    tiers beyond one pass of the walk: 512 and 1024) would exceed
+    `ragged.SCRATCH_BYTES` (`ragged.wave_buffer`); each adds one to
+    ``launches["q8"]`` (K2) or, with ``narrow``, ``launches["q8_narrow"]``
+    (K7).
 
     ``qv`` must be constant along lanes (as `make_profiles_q8_host`
     builds it): both versions read each slot's length at lane 0.
@@ -175,24 +178,17 @@ def search_flat_q8(
         torch.empty((n_g, n_blocks, QB, lanes), dtype=torch.int32, device=dev)
         for _ in range(3)
     ]
-    if narrow:  # K7's short2 H/E scratch, 4 bytes a cell
-        units, n_lanes, chunks = launch_plan(
-            n_g, QB * q_pad, n_blocks * lanes, cell_bytes=4
-        )
-        scratch = torch.empty(
-            (units, QB * q_pad, n_lanes, 2), dtype=torch.int16, device=dev
-        )
-        extra = ()
-    else:  # K2's pass buffer, as K1's, then the flat rows and group size
-        chunks, scratch = wave_buffer(n_g, QB, q_pad, flat_targets, n_blocks)
-        extra = (flat_targets.shape[0], wave_group(q_pad))
-    for g0, g1, n0, n1 in chunks:  # one stream: launches reuse scratch
+    # the pass buffer, as K1's: per slot (K2) or per pair of slots (K7)
+    chunks, pbuf = wave_buffer(n_g, QB // 2 if narrow else QB, q_pad,
+                               flat_targets, n_blocks)
+    for g0, g1, n0, n1 in chunks:  # one stream: launches reuse the buffer
         _cuda.launch(
             name,
             profs[g0:g1], qv[g0:g1], flat_targets, lengths, row_off,
-            *(o[g0:g1] for o in outs), scratch,
+            *(o[g0:g1] for o in outs), pbuf,
             g1 - g0, q_pad, n_blocks, lanes, n0, n1 - n0, int(go), int(ge),
-            ALGO_CODES[algorithm], int(bool(with_ends)), *extra,
+            ALGO_CODES[algorithm], int(bool(with_ends)),
+            flat_targets.shape[0], wave_group(q_pad),
         )
         launches[name] += 1
     return tuple(outs)
@@ -281,3 +277,52 @@ def wave_reference(profs, qv, maxq, flat_targets, lengths, bos, cos, los,
     return tuple(
         x.reshape(n_g, QB, n_blocks, lanes).permute(0, 2, 1, 3).contiguous()
         for x in out)
+
+
+def narrow_wave_reference(profs, qv, maxq, flat_targets, lengths, bos, cos,
+                          los, go, ge, chunk=64, G=None, R=WAVE_R):
+    """K7 as its CUDA kernel computes it: the packed walk of
+    ``csrc/wave.cuh`` for every (group, pair of slots, target lane), run
+    here as `ragged.wave_walk_reference` with ``narrow`` on each half
+    (slot ``2p`` the low one, ``2p + 1`` the high one; s16x2 arithmetic
+    never carries between halves, as no intermediate leaves int16, which
+    the walk asserts).  Both halves walk rows ``[0, max(Q_2p, Q_2p+1))``:
+    the shorter slot's rows past its length are its profile's pad rows,
+    an empty slot's every row.  The trackers of G = min(H, 255) - go are
+    packed into one int32 as the kernel holds them, then unpacked
+    (sign-extended) with go added back.  ``G`` threads of ``R`` rows
+    (``G``: the kernel's `ragged.wave_group` of the tier by default).
+    Same inputs and outputs as `search_flat_q8` with ``narrow`` (sw,
+    score only, gaps in ``[0, NARROW_CAP]``); CPU tensors only.  The tests
+    hold it against the JAX package; no call path uses it."""
+    del maxq, cos, los
+    go, ge = int(go), int(ge)
+    if not (0 <= go <= NARROW_CAP and 0 <= ge <= NARROW_CAP):
+        raise ValueError(f"gaps must lie in [0, {NARROW_CAP}]")
+    n_g = profs.shape[0]
+    q_pad = profs.shape[1] // QB
+    n_blocks, _, lanes = lengths.shape
+    N = n_blocks * lanes
+    G = wave_group(q_pad, R) if G is None else G
+    lens = lengths.reshape(-1).to(torch.int64).repeat(n_g * QB)
+    tgt = sweep.columns_from_flat(flat_targets, lengths, bos, chunk)
+    tgt = tgt.to(torch.int64).repeat(1, n_g * QB)  # walk = slot * N + lane
+    Q = torch.clamp(qv[:, :, 0].reshape(-1).to(torch.int64), max=q_pad)
+    rows = Q.reshape(-1, 2).amax(1).repeat_interleave(2)  # the pair's
+    rows = rows.repeat_interleave(N)
+    buf = torch.zeros(tgt.shape, dtype=torch.int64)
+    trk = wave_start(rows, go, ge, "sw")
+    trk[0] = -go  # the tracker holds G: -go is the score 0
+    trk = wave_walk_reference(
+        profs.reshape(-1), q_pad, torch.arange(n_g * QB).repeat_interleave(N),
+        0, rows, rows, tgt, lens, buf, buf, buf.clone(), buf.clone(), go, ge,
+        "sw", False, trk, G, R, False, interleave=QB, narrow=True,
+    )
+    half = trk[0].reshape(n_g * QB // 2, 2, N)
+    packed = (half[:, 0] & 0xFFFF) | ((half[:, 1] & 0xFFFF) << 16)
+    packed = packed.to(torch.int32)  # wraps into the register's bits
+    lo = ((packed & 0xFFFF) ^ 0x8000) - 0x8000
+    hi = packed >> 16  # arithmetic: sign-extended
+    score = torch.stack([lo, hi], 1).reshape(n_g, QB, n_blocks, lanes) + go
+    score = score.permute(0, 2, 1, 3).contiguous().to(torch.int32)
+    return score, torch.full_like(score, -1), torch.full_like(score, -1)

@@ -79,9 +79,9 @@ STRIP_MIN_QPAD = 512
 LANES = 128
 
 ALGO_CODES = {"sw": 0, "nw": 1, "hw": 2, "ov": 3}
-#: largest scratch (bytes) one kernel launch may use: the H/E scratch of
-#: K7, the pass buffer of K1, K2 and K4-K6 at tiers of several passes; a
-#: call that needs more is split into launches over query and lane ranges
+#: largest scratch (bytes) one kernel launch may use: the pass buffer of
+#: K1, K2 and K4-K7 at tiers of several passes; a call that needs more is
+#: split into launches over query and lane ranges
 SCRATCH_BYTES = 2 << 30
 
 #: kernel launches made by `search_flat` on CUDA tensors, by kernel
@@ -191,23 +191,22 @@ def make_profiles_host(queries_enc, matrix, q_pad=None) -> np.ndarray:
     return profs
 
 
-def launch_plan(n_units, unit_rows, n_lanes, budget=None, cell_bytes=8):
+def launch_plan(n_units, unit_rows, n_lanes, budget=None):
     """Split a kernel call into launches whose scratch fits ``budget``.
 
     A call covers ``n_units`` scratch units (queries, or q8 groups) of
     ``unit_rows`` rows each, over ``n_lanes`` target lanes; one (unit,
-    lane) needs ``unit_rows`` scratch cells of ``cell_bytes`` (the pass
-    buffer's H and F at a target column: 8; K7's short2 H/E at a query
-    row: 4).  A launch takes every lane and as many units as fit, or one
-    unit and a multiple of 128 lanes when all lanes do not fit (at least
-    128 lanes whatever the budget).  Returns
+    lane) needs ``unit_rows`` scratch cells of 8 bytes (the pass buffer's
+    H and F at a target column).  A launch takes every lane and as many
+    units as fit, or one unit and a multiple of 128 lanes when all lanes
+    do not fit (at least 128 lanes whatever the budget).  Returns
     ``(units, lanes, chunks)``: the scratch extent of one launch and its
     ``(unit0, unit1, lane0, lane1)`` ranges.
     """
     budget = SCRATCH_BYTES if budget is None else budget
     if n_units == 0 or n_lanes == 0:
         return 0, 0, []
-    cap = max(budget // (cell_bytes * unit_rows), 128)  # (unit, lane) pairs
+    cap = max(budget // (8 * unit_rows), 128)  # (unit, lane) pairs
     if n_lanes <= cap:
         units, lanes = min(n_units, cap // n_lanes), n_lanes
     else:
@@ -433,6 +432,17 @@ def search_flat_strip_reference(
 WAVE_R = 16
 #: threads per (query, target) of the walk, at most (WAVE_MAX_G)
 WAVE_MAX_G = 16
+#: K7's packed walk (``csrc/wave.cuh``, NARROW): E and F's floor in place
+#: of -infinity, the clamp of profile entries, and H's cap
+WAVE_FLOOR = -512
+WAVE_CLAMP = 1024
+WAVE_CAP = 255
+#: the range of each int16 intermediate of the packed walk at gaps in
+#: [0, `WAVE_CAP`] (``csrc/q8_narrow.cu``): s + go, E and F before and
+#: after a gap, G_diag + s + go, H before the cap and H - go
+NARROW_RANGES = {"s + go": (-1024, 1279), "E, F": (-767, 255),
+                 "G_diag + s + go": (-1279, 1534), "H": (0, 1534),
+                 "H - go": (-255, 1534)}
 
 
 def wave_group(rows: int, R: int = WAVE_R) -> int:
@@ -456,14 +466,15 @@ def wave_buffer_rows(q_pad: int, flat_rows: int, n_blocks: int) -> int:
 
 
 def wave_buffer(n_units, slots, q_pad, flat_targets, n_blocks):
-    """The pass buffer of a wavefront-walk call (K1, K2, K4, K5) and its
-    launches: ``(chunks, buffer)``.
+    """The pass buffer of a wavefront-walk call (K1, K2, K4, K5, K7) and
+    its launches: ``(chunks, buffer)``.
 
-    A unit (a query, or a q8 group of ``slots`` queries) needs H and F
-    at every target column of each lane (``(slots, 2, total_rows,
-    lanes)`` int32, laid out like the flat targets) when its ``q_pad``
-    rows take several passes of the walk; `launch_plan` then splits the
-    call within `SCRATCH_BYTES`.  One launch and no buffer (``0``, a null
+    A unit (a query, or a q8 group of ``slots`` queries, or of ``slots``
+    pairs of queries for K7's packed walk) needs H and F at every target
+    column of each lane (``(slots, 2, total_rows, lanes)`` int32, laid
+    out like the flat targets) when its ``q_pad`` rows take several
+    passes of the walk; `launch_plan` then splits the call within
+    `SCRATCH_BYTES`.  One launch and no buffer (``0``, a null
     pointer to the kernel) when the tier fits one pass."""
     rows, lanes = flat_targets.shape
     cols = wave_buffer_rows(q_pad, rows, n_blocks)
@@ -484,7 +495,7 @@ def _wave_first(a, b):
 def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
                         tgt, lens, hb_in, fb_in, pbuf_h, pbuf_f, go, ge,
                         algorithm, with_ends, trk, G, R, seg_out,
-                        interleave=1, pad_rows=False):
+                        interleave=1, pad_rows=False, narrow=False):
     """CPU emulation of ``csrc/wave.cuh``'s `wave_walk` over N walks.
 
     It mirrors the kernel: passes of ``G * R`` rows; within a pass the
@@ -501,6 +512,12 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
     them, and row ``Q - 1`` is read in whichever pass and thread hold it;
     where ``rows`` is not a multiple of ``R`` (PAD_TAIL) the final pass
     masks the rows past the walk, also when it holds row ``Q - 1``.
+    With ``narrow`` (the packed walk of K7, sw score-only, each walk one
+    half of a register) E and F start from `WAVE_FLOOR`, profile entries
+    are clamped into ``[-WAVE_CLAMP, WAVE_CLAMP]``, ``G = min(H,
+    WAVE_CAP) - go``, the tracker and the buffer hold G (``trk``'s best
+    must then be ``-go``), and every intermediate is asserted to lie in
+    its range of `NARROW_RANGES`, inside int16.
     Vectorized over walks and threads in torch (int64).
 
     Arguments (N walks, T columns):
@@ -527,8 +544,19 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
     i64 = torch.int64
     NEG = sweep.NEG
     BIG = 2**31 - 1
-    T, N = tgt.shape
+    assert not narrow or (sw and not with_ends and not seg_out
+                          and not pad_rows)
     go, ge = int(go), int(ge)
+    FLOOR = WAVE_FLOOR if narrow else NEG  # E and F's -infinity
+    ranges = dict(NARROW_RANGES, G=(-go, WAVE_CAP - go))
+    assert all(-(2**15) <= lo <= hi < 2**15 for lo, hi in ranges.values())
+
+    def in16(x, what):  # narrow: an intermediate in its range
+        lo, hi = ranges[what]
+        assert int(x.min()) >= lo and int(x.max()) <= hi, (
+            what, int(x.min()), int(x.max()))
+
+    T, N = tgt.shape
     rows = rows.to(i64)
     Q = Q.to(i64)
     lens = lens.to(i64)
@@ -561,7 +589,7 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
     lb, lbj, cap = (x[None].expand(G, N).clone()
                     for x in (best_in, bj_in, cap_in))
     oc, oci = zero + NEG, zero + BIG
-    sb, sbi, sbj = zero.clone(), zero - 1, zero - 1
+    sb, sbi, sbj = zero - (go if narrow else 0), zero - 1, zero - 1
     nsteps = int(lens.max()) + G - 1 if N and int(lens.max()) > 0 else 0
     for p in range(int(n_pass.max()) if N else 0):
         base = p * GR
@@ -583,9 +611,9 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
         bh, bf = (hb_in, fb_in) if base == 0 else (pbuf_h, pbuf_f)
         qr = q0[:, None, :] + r_[None, :, None]  # (G, R, N) global rows
         Gv = bnd(qr) - go
-        E = torch.full((G, R, N), NEG, dtype=i64)
+        E = torch.full((G, R, N), FLOOR, dtype=i64)
         gdiag = torch.where(q0 == 0, 0, bnd(q0 - 1)) - go
-        out_g, out_f, out_sym = zero.clone(), zero + NEG, zero.clone()
+        out_g, out_f, out_sym = zero.clone(), zero + FLOOR, zero.clone()
         pb = sb.clone() if sw and not with_ends else zero.clone()
         pbi, pbj = zero - 1, zero - 1
         # profile row of each (thread, row, walk): walk-relative rows
@@ -599,9 +627,10 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
             if top:
                 gtop = torch.full((N,), (-(go + s * ge) if pen_row else 0)
                                   - go, dtype=i64)
-                ftop = torch.full((N,), NEG, dtype=i64)
-            elif s < T:
-                gtop, ftop = bh[s].to(i64) - go, bf[s].to(i64)
+                ftop = torch.full((N,), FLOOR, dtype=i64)
+            elif s < T:  # narrow: the buffer holds G
+                gtop = bh[s].to(i64) - (0 if narrow else go)
+                ftop = bf[s].to(i64)
             else:
                 gtop, ftop = torch.full((N,), -go, dtype=i64), zero[0]
             sym0 = tgt[s] if s < T else zero[0]
@@ -614,12 +643,16 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
             act = (nv > 0) & (j >= 0) & (j < lens)
             if not bool(act.any()):
                 continue
-            pv = prof_flat[rowi * ALPHA + sym[:, None, :]] + go  # (G, R, N)
+            pv = prof_flat[rowi * ALPHA + sym[:, None, :]]  # (G, R, N)
+            if narrow:
+                pv = pv.clamp(-WAVE_CLAMP, WAVE_CLAMP)
+            pv = pv + go
             gd = gdiag
             Gn = torch.empty_like(Gv)
             best = pb
             En = torch.maximum(E - ge, Gv)  # E of every row: G of its left
             Fr = torch.empty_like(Gv)
+            f_in = f
             for r in range(R):
                 f = torch.maximum(f - ge, gup)
                 Fr[:, r] = f
@@ -627,10 +660,21 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
                 if sw:
                     h.clamp_(min=0)
                 gd = Gv[:, r]
-                gup = Gn[:, r] = h - go
+                gup = Gn[:, r] = (h.clamp(max=WAVE_CAP) if narrow else h) - go
+            if narrow:  # every intermediate of the packed cell
+                diag = torch.cat([gdiag[:, None], Gv[:, :-1]], 1) + pv
+                hpre = torch.maximum(torch.maximum(diag, En), Fr).clamp(min=0)
+                in16(pv, "s + go")
+                for x in (E - ge, En, Fr,
+                          torch.cat([f_in[:, None], Fr[:, :-1]], 1) - ge):
+                    in16(x, "E, F")
+                in16(diag, "G_diag + s + go")
+                in16(hpre, "H")
+                in16(hpre - go, "H - go")
+                in16(Gn, "G")
             if sw:  # the running max over the thread's rows in the walk
-                hs = torch.where(r_[None, :, None] < nv[:, None], Gn + go,
-                                 sweep.NEG)
+                hs = torch.where(r_[None, :, None] < nv[:, None],
+                                 Gn if narrow else Gn + go, sweep.NEG)
                 best = torch.maximum(best, hs.amax(1))
             fq = Fr.gather(1, rl[None, None].expand(G, 1, N))[:, 0]
             E = torch.where(act[:, None], En, E)
@@ -651,7 +695,7 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
                     oc = torch.where(upd, h, oc)
                     oci = torch.where(upd, q0 + r, oci)
             gq = Gn.gather(1, rl[None, None].expand(G, 1, N))[:, 0]
-            hq = gq + go
+            hq = gq if narrow else gq + go  # narrow: the buffer holds G
             own = act & owner
             ht = Gn.gather(1, trk_rl[None, None].expand(G, 1, N))[:, 0] + go
             if hw_ov:

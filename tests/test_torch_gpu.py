@@ -407,26 +407,43 @@ def test_v1_kernels_split_by_scratch_budget_match_plain(dev, kernel,
     assert want > len(qls) and ragged.launches[kernel] == before + want
 
 
-def _narrow_args(dev, lanes=512):
-    """Two q8 groups at the 256 tier over the edge lengths 30 times, one
-    query a 250-residue stretch of a target: its lane scores past 255."""
+#: K7's cases: query lengths and, where given, the groups' query indices
+#: (slots pair up as (0, 1), (2, 3), ... in the order given): the 256 tier
+#: (one pass, no buffer), 512 and 1024 (two and four passes through the
+#: buffer), and "pairs", paired slots of unequal lengths (256/17, 9/200,
+#: 255/1), an empty slot beside a query (129, 3) and pairs of empty slots
+NARROW_CASES = {
+    "tier256": ([256, 129, 200, 255, 140, 180, 222, 250, 64, 1, 40, 63, 7,
+                 50, 29, 33], None),
+    "tier512": ([512, 257, 300, 400, 511, 260, 333, 444, 100, 7], None),
+    "tier1024": ([1024, 700, 513, 1000, 9, 600, 800, 250], None),
+    "pairs": ([256, 17, 9, 200, 255, 1, 129, 64, 40, 3],
+              [[0, 1, 2, 3, 4, 5, 6], [7, 8, 9]]),
+}
+
+
+def _narrow_args(dev, case="tier256", lanes=512):
+    """K7's inputs for a case of `NARROW_CASES` over the edge lengths 30
+    times, one query a 250-residue stretch of a target: its lane scores
+    past 255."""
     rng = np.random.default_rng(17)
     seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in LENGTHS * 30]
-    qls = [256, 129, 200, 255, 140, 180, 222, 250, 64, 1, 40, 63, 7, 50,
-           29, 33]
+    qls, groups = NARROW_CASES[case]
     queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
-    queries[7] = seqs[8][:250].copy()
+    hit = next(i for i, n in enumerate(qls) if n >= 250)
+    queries[hit][:250] = seqs[8][:250]
     fp = packing.pack_sequences_flat(seqs, lanes=lanes)
-    groups = q8.plan_groups(qls)
+    groups = q8.plan_groups(qls) if groups is None else groups
     arrays = q8.make_profiles_q8_host(queries, S, groups, lanes=lanes)
     return (*(torch.from_numpy(a).to(dev) for a in arrays), *_flat(fp, dev))
 
 
 @pytest.mark.parametrize("gaps", [(3, 1), (0, 0), (255, 255)])
-def test_q8_narrow_kernel_matches_plain(dev, gaps):
+@pytest.mark.parametrize("case", sorted(NARROW_CASES))
+def test_q8_narrow_kernel_matches_plain(dev, case, gaps):
     """K7 against its plain version, and its scores min(K2's, 255) on the
-    same tensors, with at least one lane flagged."""
-    args = _narrow_args(dev)
+    same tensors, with at least one lane flagged; one launch."""
+    args = _narrow_args(dev, case)
     before = dict(q8.launches)
     out = q8.search_flat_q8(*args, *gaps, "sw", False, narrow=True)
     _equal(out, q8.search_flat_q8_reference(*args, *gaps, "sw", False,
@@ -439,10 +456,15 @@ def test_q8_narrow_kernel_matches_plain(dev, gaps):
 
 
 def test_q8_narrow_split_by_scratch_budget_matches_plain(dev, monkeypatch):
-    """A short2 budget of one group and 128 lanes a launch."""
-    args = _narrow_args(dev)
-    unit_rows = args[0].shape[1]
-    monkeypatch.setattr(ragged, "SCRATCH_BYTES", 4 * unit_rows * 128)
+    """A budget of one group and 128 lanes a launch for K7's pass buffer
+    (packed G and F per pair of slots and target column) at the 512 tier,
+    two passes."""
+    args = _narrow_args(dev, "tier512")
+    assert args[0].shape[1] == 8 * 512
+    unit_rows = q8.QB // 2 * ragged.wave_buffer_rows(
+        512, args[3].shape[0], args[4].shape[0])
+    assert unit_rows > 0
+    monkeypatch.setattr(ragged, "SCRATCH_BYTES", 8 * unit_rows * 128)
     before = q8.launches["q8_narrow"]
     _equal(q8.search_flat_q8(*args, 3, 1, "sw", False, narrow=True),
            q8.search_flat_q8_reference(*args, 3, 1, "sw", False,

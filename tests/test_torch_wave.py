@@ -1,15 +1,16 @@
-"""The wavefront walk of K1-K6, emulated on the CPU, against `pyopal_tpu`.
+"""The wavefront walk of K1-K7, emulated on the CPU, against `pyopal_tpu`.
 
 The CUDA kernels of K1 (``csrc/ragged.cu``), K2 (``csrc/q8.cu``), K3
 (``csrc/ragged_long.cu``), K4 (``csrc/ragged_v1.cu``), K5
-(``csrc/ragged_strip.cu``) and K6 (``csrc/group.cu``) walk each (query,
-target) with a group of G threads, R query rows each, in passes of G * R
-rows (``csrc/wave.cuh``).  The kernels run only on the card; their CPU
+(``csrc/ragged_strip.cu``), K6 (``csrc/group.cu``) and, in its packed
+16-bit form, K7 (``csrc/q8_narrow.cu``) walk each (query, target) with a
+group of G threads, R query rows each, in passes of G * R rows
+(``csrc/wave.cuh``).  The kernels run only on the card; their CPU
 emulations, `ragged.wave_reference`, `q8.wave_reference`,
 `ragged_long.wave_segment_reference`, `ragged.wave_v1_reference`,
-`ragged.wave_strip_reference` and `group.wave_group_reference`, mirror
-the passes, the per-thread row blocks, the per-thread trackers and their
-merge.  Here they run at a small G and R (4 and 2: passes of 8 rows) so
+`ragged.wave_strip_reference`, `group.wave_group_reference` and
+`q8.narrow_wave_reference`, mirror the passes, the per-thread row
+blocks, the per-thread trackers and their merge.  Here they run at a small G and R (4 and 2: passes of 8 rows) so
 that a short query crosses threads and passes, or at the kernels' own,
 and must equal
 
@@ -35,6 +36,11 @@ and must equal
   at queries whose ``Q_pad`` (a multiple of 8) is not a multiple of 16
   (20, 260), so that at -1/2 the masked final pass holds row ``Q - 1``,
   and at 13 (one of two threads without rows);
+- for K7, `pallas_q8.search_flat_q8(..., narrow=True)` (interpreted) and
+  the plain version `q8.search_flat_q8_reference(..., narrow=True)`, at
+  gaps 3/1, 0/0 and 255/255, on paired slots of unequal lengths and
+  empty slots, at the 64 tier (also at G = 4, R = 2), on the reference's
+  narrow test at the 256 tier, and at the 512 tier (two passes);
 
 with tolerance 0: all compute integer DP.  Query lengths sit on either
 side of a pass (G * R - 1, G * R, G * R + 1, 2 * G * R + 3), targets at
@@ -451,3 +457,80 @@ def test_k6_wave_qrow_before_masked_pass_matches_reference():
     row Q - 1 lies in the first pass, the masked final pass holds pad
     rows only."""
     _k6_compare(13, "sw", True, (-1, 2), prof_rows=264)
+
+
+#: K7's cases: (query lengths, the group's query indices, a query that
+#: is a stretch of a target, gaps, also at G = 4, R = 2).  A group's
+#: slots pair up as (0, 1), (2, 3), ... in the order given, so that paired
+#: slots differ in length (60/44, 9/50, 300/257) and an empty slot pairs
+#: with a query or with another empty slot.  "self-hit" is the
+#: reference's narrow test (`tests/test_q8.py`, seed 77: a 150-residue
+#: query against itself, past the cap) at the 256 tier, one pass of 16
+#: threads; "tier64" one pass of 4 threads (8 passes at G = 4, R = 2);
+#: "tier512" two passes of the kernel's 16 threads through its buffer.
+#: Targets of at most 64 residues keep the interpreted reference to one
+#: grid step a group outside "self-hit".
+K7_CASES = {
+    "self-hit": (None, None, None, (3, 1), False),
+    "tier64 0/0": ([60, 44, 9, 50, 17], [0, 1, 2, 3, 4], 0, (0, 0), True),
+    "tier64 255/255": ([60, 44, 9, 50, 17], [0, 1, 2, 3, 4], 0, (255, 255),
+                       False),
+    "tier512": ([300, 257, 50, 9, 60, 61, 7], list(range(7)), 4, (3, 1),
+                False),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _k7_case(name):
+    """K7's inputs for one case and the interpreted reference narrow pass
+    on them (computed once per case)."""
+    qls, group, stretch, gaps, _ = K7_CASES[name]
+    if qls is None:  # the reference's narrow inputs, seed 77
+        rng = np.random.default_rng(77)
+        big = rng.integers(0, 20, 150).astype(np.uint8)
+        seqs = [rng.integers(0, 20, int(n)).astype(np.uint8)
+                for n in [0, 1, 40, 63, 64, 65, 90, 150, 17, 33]]
+        seqs[7] = big.copy()
+        qs = [rng.integers(0, 20, int(n)).astype(np.uint8)
+              for n in (60, 44, 150, 21, 64, 15, 9, 50)]
+        qs[2] = big.copy()
+        groups = q8.plan_groups([len(q) for q in qs])
+    else:
+        rng = np.random.default_rng(53)
+        seqs = [rng.integers(0, 20, n).astype(np.uint8)
+                for n in (0, 1, 30, 63, 64, 20, 50)]
+        qs = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
+        qs[stretch] = seqs[4][: qls[stretch]].copy()  # scores past the cap
+        groups = [group]
+    fp = ref_packing.pack_sequences_flat(seqs, lanes=128)
+    arrays = q8.make_profiles_q8_host(qs, S, groups, lanes=128)
+    ref = pq8.search_flat_q8(
+        jnp.asarray(arrays[0], jnp.bfloat16),
+        *(jnp.asarray(a) for a in arrays[1:]),
+        *(jnp.asarray(a) for a in _flat(fp)), *gaps, "sw", False,
+        interpret=True, chunk=fp.chunk, narrow=True, unroll=1, ncols=8,
+    )  # unroll and ncols: how it walks a chunk (the quickest here)
+    args = [torch.from_numpy(a) for a in (*arrays, *_flat(fp))]
+    return args, fp, [np.asarray(r) for r in ref]
+
+
+@pytest.mark.parametrize("name", sorted(K7_CASES))
+def test_k7_wave_matches_reference(name):
+    """K7's packed walk (pairs of slots in int16 halves, the floor, the
+    clamp, the cap folded into G, each pair walked to its longer slot,
+    the tracker unpacked) at the kernel's own G and R, and in one case at
+    G = 4, R = 2, equals the interpreted reference narrow pass and the
+    plain version on all three planes; the walk asserts that every
+    intermediate stays in its int16 range.  Scores are min(sw score,
+    255), with some lane at the cap."""
+    args, fp, ref = _k7_case(name)
+    gaps, small = K7_CASES[name][3:]
+    q_pad = args[0].shape[1] // q8.QB
+    assert q_pad == {"self-hit": 256, "tier512": 512}.get(name, 64)
+    plain = q8.search_flat_q8_reference(*args, *gaps, "sw", False, fp.chunk,
+                                        True)
+    _assert_equal(plain, ref, f"K7 plain {name}")
+    for g, r in [(None, ragged.WAVE_R)] + [(G, R)] * small:
+        got = q8.narrow_wave_reference(*args, *gaps, fp.chunk, G=g, R=r)
+        _assert_equal(got, ref, f"K7 {name} G={g} R={r}")
+    assert int((got[0] == q8.NARROW_CAP).sum()) >= 1

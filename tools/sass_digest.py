@@ -6,11 +6,13 @@ Usage::
 
 For each library (a ``build/pyopal_tpu_torch/<kernel>-<hash>.so`` that
 ``pyopal_tpu_torch.ops._cuda`` built), runs ``cuobjdump -sass`` and
-prints one JSON line: per kernel function, its instruction count and a
-SHA-256 of its instructions with addresses and encodings stripped.  Two
-builds of one source from two trees compile to the same machine code
-exactly when their digests agree.  Needs the CUDA toolkit's
-``cuobjdump`` (on the PATH or under ``/usr/local/cuda/bin``).
+prints one JSON line: per kernel function, its instruction count, a
+SHA-256 of its instructions with addresses and encodings stripped, and
+the count of each opcode with its modifiers (``VIADDMNMX.S16x2``, say:
+which instructions a source line became).  Two builds of one source from
+two trees compile to the same machine code exactly when their digests
+agree.  Needs the CUDA toolkit's ``cuobjdump`` (on the PATH or under
+``/usr/local/cuda/bin``).
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ def _cuobjdump() -> str:
 
 
 def digest(lib: str) -> dict:
-    """``{function: {"instructions": n, "sha256": hex}}`` of one library."""
+    """``{function: {"instructions": n, "sha256": hex, "opcodes": {opcode:
+    n}}}`` of one library."""
     out = subprocess.run(
         [_cuobjdump(), "-sass", lib], check=True, capture_output=True,
         text=True,
@@ -52,11 +55,15 @@ def digest(lib: str) -> dict:
         m = _INSN.match(line)
         if m and name is not None:
             funcs[name].append(m.group(1))
-    return {
-        f: {"instructions": len(ins),
-            "sha256": hashlib.sha256("\n".join(ins).encode()).hexdigest()}
-        for f, ins in sorted(funcs.items())
-    }
+    out = {}
+    for f, ins in sorted(funcs.items()):
+        # the mnemonic after any predicate ("@!P0 BRA ...")
+        ops = [i.split()[1] if i.startswith("@") else i.split()[0]
+               for i in ins if i.split()]
+        out[f] = {"instructions": len(ins),
+                  "sha256": hashlib.sha256("\n".join(ins).encode()).hexdigest(),
+                  "opcodes": dict(sorted((o, ops.count(o)) for o in set(ops)))}
+    return out
 
 
 def main(argv) -> int:
