@@ -9,9 +9,10 @@ Phases (the first failure ends the run with a nonzero exit code):
 
 1. the card: name and power limit from ``nvidia-smi``, torch and CUDA
    versions;
-2. the build: the seven kernels (``pyopal_tpu_torch/csrc/ragged.cu``,
+2. the build: the nine kernels (``pyopal_tpu_torch/csrc/ragged.cu``,
    ``q8.cu``, ``ragged_long.cu``, ``ragged_v1.cu``, ``ragged_strip.cu``,
-   ``group.cu``, ``q8_narrow.cu``) compiled with ``nvcc`` for
+   ``group.cu``, ``q8_narrow.cu``, and full mode's ``traceback_dirs.cu``
+   (T1) and ``traceback_walk.cu`` (T2)) compiled with ``nvcc`` for
    ``sm_90a``, in parallel, with each kernel's registers, stack frame
    and spills as ``ptxas`` reports them; beside them the probe
    ``tools/dpx_rate.cu``, which then measures the instructions per SM
@@ -36,7 +37,12 @@ Phases (the first failure ends the run with a nonzero exit code):
    targets that hold symbol
    31 as a real letter; K7 (the narrow pass) at tiers 64 to 1024 (one
    pass, then two and four through its buffer) and gaps 3/1, 0/0 and
-   255/255, its scores also held against min(K2's, 255);
+   255/255, its scores also held against min(K2's, 255); then (3b) T1
+   and T2 byte for byte against their plain versions on the batches of
+   one 256-aa full-mode query over the main database (the shortest, the
+   median and the longest, B = 64 at T_pad 1,920, at all four algorithms
+   and gaps 3/1; the median at 1/3 and 0/0), on a tie-heavy batch and
+   under a random 32 x 32 matrix;
 4. the golden values through `pyopal_tpu_torch.Aligner` on ``cuda``;
 5. the main path at full size: a synthetic 12,071-sequence database
    (the generator of ``bench.py``, seed 12071) searched with 67
@@ -85,6 +91,14 @@ Phases (the first failure ends the run with a nonzero exit code):
    self-hits past the cap), on the main database and on a tie-heavy
    database of 12,071 repeated-motif sequences at its lengths, searched
    with motif queries;
+   then full mode and top-k at full width (5f), counted: one 256-aa query
+   through ``Aligner.align(mode="full")`` (K1, then T1 and T2 once per
+   batch), equal to end mode and, on 16 pairs, to the oracle's traceback;
+   ``align_arrays(mode="full")`` of one q8 group against ``align_batch``;
+   ``align_top_k(k=100)`` for the 67 queries and ``align_top_k_sharded``
+   over the 4 shards equal to it, with a tie case that takes the second
+   candidate gather; ``align_arrays_sharded(mode="full")``; the golden
+   values in full mode;
 6. timings with CUDA events after a warm-up, each kernel held against
    its plain version at the main path's shapes (K3: one 2048-row
    segment of the 35,000-residue query; K6: the sharded path's 40
@@ -99,7 +113,11 @@ Phases (the first failure ends the run with a nonzero exit code):
    groups beside it),
    end-to-end throughput, long-query and sharded call times, and each
    kernel's launches in one ``align_arrays`` and one ``align`` call,
-   counted;
+   counted; T1 and T2 per batch of one full-mode query, their bounds (T1:
+   the direction bytes, or the recurrence's 16 int32 operations a cell at
+   the int32 rate; T2: a 32-byte sector a walk step), and the parts of
+   ``align(mode="full")`` (score pass, traceback, result building) with
+   the host's share;
 7. the ``kernels`` line, then the card line, then the result line.
 
 With ``--rank R --world N --backend B --init FILE --out FILE`` the
@@ -139,6 +157,15 @@ OPS_PER_CELL_WAVE = 6
 #: counts them at the highest of the int32 rate and the s16x2 rates
 #: ``tools/dpx_rate.cu`` measures in this run
 OPS_PER_PAIR_NARROW = 5.5
+#: int32 operations per cell of T1's direction pass (sw), counted from the
+#: recurrence at its least: G = H - go (1, shared by the next column's E
+#: and the next row's F), E = max(G, E - ge) (2), F = max(G, F - ge) (2),
+#: the diagonal add (1), its max with E (1), the clamp at 0 (1), the max
+#: with F (1), the code's compares of H with the diagonal, E and 0 (3), the
+#: open bits' compares (2) and packing the three fields into a byte (2);
+#: what the kernel's loop runs beyond them (shuffles, loads, lane 0's
+#: boundary row, the stores' branches) is its gap to the bound
+OPS_PER_CELL_DIRS = 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT32_LANES_PER_SM = 64
 N_SMS = 132
@@ -312,10 +339,12 @@ def main():
         return 1
     import pyopal_tpu_torch as pt
     from pyopal_tpu_torch.ops import _cuda, engine, group, naive, packing
-    from pyopal_tpu_torch.ops import q8, ragged, ragged_long, sweep
+    from pyopal_tpu_torch.ops import q8, ragged, ragged_long, sweep, traceback
     from pyopal_tpu_torch.parallel import (
-        align_arrays_sharded, device_mesh, initialize_distributed,
+        align_arrays_sharded, align_top_k_sharded, device_mesh,
+        initialize_distributed,
     )
+    from pyopal_tpu_torch.results import cigar_string
     from pyopal_tpu_torch.parallel import sharded
     from pyopal_tpu_torch.parallel import sharded_flat as sfm
 
@@ -383,12 +412,12 @@ def main():
     # each kernel's launch count, kept by its wrapper's module: a dict by
     # kernel where a module launches several, else an int
     def launch_counts():
-        return {**ragged.launches, **q8.launches,
+        return {**ragged.launches, **q8.launches, **traceback.launches,
                 "ragged_long": ragged_long.launches,
                 "group": group.launches, "sweep": sweep.launches}
 
     def zero_counts():
-        for d in (ragged.launches, q8.launches):
+        for d in (ragged.launches, q8.launches, traceback.launches):
             d.update(dict.fromkeys(d, 0))
         ragged_long.launches = group.launches = sweep.launches = 0
 
@@ -744,6 +773,106 @@ def main():
           "k6_launches": k6_launches,
           "seconds": time.perf_counter() - t0})
 
+    # --- 3b. T1 and T2 against their plain versions -----------------------------
+    # the batches of one full-mode query of 256 aa over the main database,
+    # as `traceback.plan_batches` forms them: the shortest, the median and
+    # the longest (42 pairs, B = 64, T_pad 1,920) at every algorithm at gaps
+    # 3/1, the median at 1/3 (sw) and 0/0 (nw), the median's lengths over
+    # the tie-heavy database's construction (seed 12, sw), and a random 32 x
+    # 32 matrix over 32 symbols (nw); each T1 output byte-equal to the plain
+    # version's (columns past each length are 0 in both), each T2 walk (buf,
+    # i, j) equal on the same bytes, from the score pass's ends
+    t0 = time.perf_counter()
+    db_seqs, queries = main_workload()
+    db = pt.Database(db_seqs)
+    n_t = len(db)
+    setup_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tb_targets = [db.get_encoded(i) for i in range(n_t)]
+    tb_q = np.frombuffer(db.alphabet.encode(queries[0]), np.uint8)
+    tb_batches, tb_scalar = traceback.plan_batches(
+        len(tb_q), [len(t) for t in tb_targets])
+    if tb_scalar:
+        fail(f"{len(tb_scalar)} main-database pairs over the cell budget")
+    tb_picks = {"shortest": tb_batches[0],
+                "median": tb_batches[len(tb_batches) // 2],
+                "longest": tb_batches[-1]}
+    tb_cases = {}
+    tb_args = {}  # label -> (T1's arguments, T2's arguments)
+
+    def tb_compare(label, q_enc, mat, tgts, batch, algo, gaps, q_ends,
+                   t_ends):
+        """T1 and T2 against their plain versions on one padded batch."""
+        tgt, tlen = traceback.pad_batch(tgts, batch)
+        qes, tes = traceback.walk_ends(tgts, batch, tgt.shape[0], len(q_enc),
+                                       q_ends, t_ends, algo)
+        prof = np.ascontiguousarray(
+            np.asarray(mat, np.int32)[q_enc.astype(np.int64)])
+        args = (torch.from_numpy(prof).to(dev), torch.from_numpy(tgt).to(dev),
+                *gaps, algo, torch.from_numpy(tlen).to(dev))
+        (dirs,), e1 = compare(
+            "traceback_dirs", lambda *a: (traceback._dir_matrix_batch(*a),),
+            lambda *a: (traceback.dir_matrix_reference(*a),), args,
+            f"T1 {label}")
+        t1_plain = plain_seconds["traceback_dirs"]
+        wargs = (dirs, torch.from_numpy(qes).to(dev),
+                 torch.from_numpy(tes).to(dev), algo)
+        out, e2 = compare("traceback_walk", traceback._walk_batch_device,
+                          traceback.walk_reference, wargs, f"T2 {label}")
+        ops = int((out[0] != 255).sum())
+        tb_cases[label] = {
+            "B": int(tgt.shape[0]), "T_pad": int(tgt.shape[1]),
+            "pairs": len(batch), "cells": int(tlen.sum()) * len(q_enc),
+            "walk_ops": ops, "max_abs_err": max(e1, e2),
+            "plain_seconds": [t1_plain, plain_seconds["traceback_walk"]]}
+        tb_args[label] = (args, wargs)
+
+    tb_gaps = [(a, (GO, GE)) for a in algos] + [("sw", (1, 3)),
+                                                 ("nw", (0, 0))]
+    with db.lock.read:
+        tb_ends = {key: engine.search_scores(
+            db, 0, n_t, tb_q, S, *key[1], key[0], device=dev)[1:]
+            for key in tb_gaps}
+    for name, batch in tb_picks.items():
+        for algo in algos:
+            tb_compare(f"{name} {algo} 3/1", tb_q, S, tb_targets, batch, algo,
+                       (GO, GE), *tb_ends[algo, (GO, GE)])
+    for algo, gaps in tb_gaps[4:]:
+        tb_compare(f"median {algo} {gaps[0]}/{gaps[1]}", tb_q, S, tb_targets,
+                   tb_picks["median"], algo, gaps, *tb_ends[algo, gaps])
+    # the tie-heavy construction (phase 5e's) at the median batch's lengths
+    trng = np.random.default_rng(12)
+    motif = np.frombuffer(db.alphabet.encode("WCHKMY"), np.uint8)
+    tie_seqs = []
+    for i in tb_picks["median"]:
+        L = len(tb_targets[i])
+        t_ = np.resize(np.roll(motif, int(trng.integers(0, 6))), L)
+        hit = trng.random(L) < 0.03
+        t_[hit] = trng.integers(0, 20, int(hit.sum()))
+        tie_seqs.append(db.alphabet.decode(t_.astype(np.uint8).tobytes()))
+    tie_db = pt.Database(tie_seqs)
+    tie_q = np.resize(motif, 256).astype(np.uint8)
+    with tie_db.lock.read:
+        _, tie_qe, tie_te = engine.search_scores(
+            tie_db, 0, len(tie_db), tie_q, S, GO, GE, "sw", device=dev)
+    tie_tg = [tie_db.get_encoded(i) for i in range(len(tie_db))]
+    tb_compare("tie-heavy median sw 3/1", tie_q, S, tie_tg,
+               list(range(len(tie_tg))), "sw", (GO, GE), tie_qe, tie_te)
+    # a random 32 x 32 matrix (phase 3's) over 32 symbols: nw, whose end is
+    # the terminal cell
+    r32 = [rng.integers(0, 32, int(n)).astype(np.uint8)
+           for n in rng.integers(1, 513, 64)]
+    q32 = rng.integers(0, 32, 256).astype(np.uint8)
+    tb_compare("random 32x32 nw 3/1", q32, m32, r32, list(range(64)), "nw",
+               (GO, GE), np.full(64, 255), np.array([len(t) - 1 for t in r32]))
+    emit({"phase": "traceback_vs_plain", "batches_per_query": len(tb_batches),
+          "batch_sizes": {k: [tb_cases[f"{k} sw 3/1"][x] for x in
+                              ("pairs", "B", "T_pad")] for k in tb_picks},
+          "cases": len(tb_cases), "equal": True,
+          "plain_seconds": {k: v["plain_seconds"] for k, v in
+                            tb_cases.items()},
+          "seconds": time.perf_counter() - t0})
+
     # --- 4. golden values ------------------------------------------------------
     al = pt.Aligner(device=dev)  # BLOSUM50, gap 3/1
     gdb = pt.Database(["AACCGCTG"])
@@ -759,15 +888,11 @@ def main():
     emit({"phase": "golden", **golden})
 
     # --- 5. the main path at full size -----------------------------------------
-    t0 = time.perf_counter()
-    db_seqs, queries = main_workload()
     letters = "ARNDCQEGHILKMFPSTWYV"
-    db = pt.Database(db_seqs)
-    n_t = len(db)
     residues = db.total_length
     emit({"phase": "main_setup", "targets": n_t, "residues": residues,
           "queries": len(queries), "query_length": 256,
-          "seconds": time.perf_counter() - t0})
+          "seconds": setup_seconds})
 
     zero_counts()
     t0 = time.perf_counter()
@@ -1449,6 +1574,163 @@ def main():
     emit({"phase": "wave_edges", "cases": edge_cases, "equal": True,
           "targets": n_t, "seconds": time.perf_counter() - t0, **card})
 
+    # --- 5f. full mode and top-k at full width -------------------------------
+    # one 256-aa query through Aligner.align(mode="full") against every
+    # target (K1, then T1 and T2 once per batch), equal to end mode and, on
+    # 16 pairs of spread lengths, to the oracle's traceback; the first 8
+    # queries (one q8 group, K2) through align_arrays(mode="full") against
+    # align_batch's objects; align_top_k(k=100) for the 67 queries, and
+    # align_top_k_sharded over the 4 shards equal to it (plus a case whose
+    # ties force the second candidate gather); align_arrays_sharded(mode=
+    # "full") of 3 queries against align_arrays; the golden values in full
+    # mode.  The counts are set to 0 before the first call and read after
+    # the last.
+    t0 = time.perf_counter()
+    full_lens = np.sort(lengths_all[lengths_all < 1500])
+    oracle_b = [int(np.nonzero(lengths_all == full_lens[int(k)])[0][0])
+                for k in np.linspace(0, full_lens.size - 1, 16)]
+    oracle_jobs = [(enc_q[0], db.get_encoded(b), S, GO, GE, "sw")
+                   for b in oracle_b]
+
+    def full_rows(hits):
+        return [(h.target_index, h.score, h.query_start, h.query_end,
+                 h.target_start, h.target_end, h.alignment) for h in hits]
+
+    pool = cf.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        oracle_full = pool.map(naive.traceback, *zip(*oracle_jobs),
+                               chunksize=1)
+        zero_counts()
+        t1 = time.perf_counter()
+        full = al.align(queries[0], db, mode="full")
+        full_call_seconds = time.perf_counter() - t1
+        full_one = launch_counts()
+        want_one = only(ragged=1, traceback_dirs=len(tb_batches),
+                        traceback_walk=len(tb_batches))
+        if full_one != want_one:
+            fail(f"align(mode='full') launches: {full_one}, want {want_one}")
+        if len(full) != n_t:
+            fail(f"align(mode='full') returned {len(full)} results")
+        same(np.array([[h.score, h.query_end, h.target_end] for h in full]).T,
+             np.stack([res_e[k][0] for k in
+                       ("scores", "query_ends", "target_ends")]),
+             "align(mode='full') vs end mode")
+        # align_arrays(mode="full") of one q8 group against align_batch
+        t1 = time.perf_counter()
+        arr8 = al.align_arrays(queries[:8], db, mode="full")
+        arrays_seconds = time.perf_counter() - t1
+        obj8 = al.align_batch(queries[:8], db, mode="full")
+        for key in ("scores", "query_ends", "target_ends"):
+            same(arr8[key], res_e[key][:8], f"align_arrays(full) {key}")
+        for qi, hits in enumerate(obj8):
+            for key, attr in (("scores", "score"), ("query_ends", "query_end"),
+                              ("target_ends", "target_end"),
+                              ("query_starts", "query_start"),
+                              ("target_starts", "target_start")):
+                same(arr8[key][qi], [getattr(h, attr) for h in hits],
+                     f"align_arrays(full) {key} vs align_batch, query {qi}")
+            if list(arr8["cigars"][qi]) != [h.cigar() for h in hits]:
+                fail(f"align_arrays(full) CIGARs vs align_batch, query {qi}")
+        if full_rows(obj8[0]) != full_rows(full):  # query 0 both times
+            fail("align_batch(full) differs from align(full)")
+        # top-k for the 67 queries, single device and over the 4 shards
+        t1 = time.perf_counter()
+        top = [al.align_top_k(q, db, k=100) for q in queries]
+        top_seconds = time.perf_counter() - t1
+        for qi, hits in enumerate(top):
+            order = np.argsort(-res_e["scores"][qi], kind="stable")[:100]
+            same([h.target_index for h in hits], order,
+                 f"align_top_k order, query {qi}")
+            same([[h.score, h.query_end, h.target_end] for h in hits],
+                 np.stack([res_e[k][qi][order] for k in
+                           ("scores", "query_ends", "target_ends")]).T,
+                 f"align_top_k ends, query {qi}")
+        full_list = full_rows(full)
+        if full_rows(top[0]) != [full_list[h.target_index] for h in top[0]]:
+            fail("align_top_k differs from align(full) on its hits")
+        gathers = []
+        real_candidates = sfm.sharded_topk_candidates
+
+        def counted_candidates(*args):
+            gathers.append(args[-1])
+            return real_candidates(*args)
+
+        sfm.sharded_topk_candidates = counted_candidates
+        try:
+            t1 = time.perf_counter()
+            top_sh = align_top_k_sharded(queries, db, k=100, mesh=mesh4)
+            top_sh_seconds = time.perf_counter() - t1
+            main_gathers = list(gathers)
+            if [full_rows(h) for h in top_sh] != [full_rows(h) for h in top]:
+                fail("align_top_k_sharded differs from align_top_k")
+            # ties straddling every shard's candidate floor
+            # (tests/test_sharded_api.py's construction)
+            import random
+
+            trand = random.Random(17)
+            base = "".join(trand.choice(letters) for _ in range(40))
+            tie_targets = [base] * 120 + [
+                "".join(trand.choice(letters)
+                        for _ in range(trand.randint(10, 80)))
+                for _ in range(80)]
+            trand.shuffle(tie_targets)
+            tdb = pt.Database(tie_targets)
+            del gathers[:]
+            tie_sh = align_top_k_sharded([base], tdb, k=15, mesh=mesh4)[0]
+            tie_gathers = list(gathers)
+        finally:
+            sfm.sharded_topk_candidates = real_candidates
+        if full_rows(tie_sh) != full_rows(al.align_top_k(base, tdb, k=15)):
+            fail("align_top_k_sharded differs from align_top_k on ties")
+        # the main queries' first gather takes each shard's 100 best; a
+        # second (every shard's whole list) only where ties at the 100th
+        # score straddle a shard's floor
+        if len(tie_gathers) != 2 or main_gathers[0] != 100 or len(
+                main_gathers) > 2:
+            fail(f"candidate gathers: {main_gathers}, ties {tie_gathers}")
+        t1 = time.perf_counter()
+        arr3 = align_arrays_sharded(queries[:3], db, mode="full", mesh=mesh4)
+        arrays_sh_seconds = time.perf_counter() - t1
+        want3 = al.align_arrays(queries[:3], db, mode="full")
+        if arr3.keys() != want3.keys():
+            fail(f"align_arrays_sharded(full) keys: {sorted(arr3)}")
+        for key in want3:
+            same(arr3[key], want3[key], f"align_arrays_sharded(full) {key}")
+        # the golden values in full mode
+        (nwf,) = al.align("ACCTCG", gdb, mode="full", algorithm="nw")
+        (swf,) = al.align("ACCTCG", gdb, mode="full", algorithm="sw")
+        golden_full = [nwf.score, nwf.cigar(), swf.score, swf.target_start]
+        if golden_full != [44, "1D5M1D1M", 47, 1]:
+            fail(f"golden values in full mode: {golden_full}")
+        full_counts = launch_counts()
+        for k in ("ragged", "q8", "traceback_dirs", "traceback_walk"):
+            if full_counts[k] < 1:
+                fail(f"the full-mode path launched no {k}: {full_counts}")
+        t1 = time.perf_counter()
+        for b, o in zip(oracle_b, oracle_full):
+            h = full[b]
+            got = (h.score, h.query_start, h.target_start, h.query_end,
+                   h.target_end, h.cigar())
+            if got != (*o[:5], cigar_string(o[5])):
+                fail(f"align(mode='full') target {b}: {got}, oracle {o[:5]} "
+                     f"{cigar_string(o[5])}")
+        oracle_full_wait = time.perf_counter() - t1
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    emit({"phase": "full_mode_path", "launches": full_counts,
+          "align_full_launches": full_one, "batches": len(tb_batches),
+          "align_full_seconds": full_call_seconds,
+          "align_arrays_full_8_seconds": arrays_seconds,
+          "align_top_k_67_seconds": top_seconds,
+          "align_top_k_sharded_67_seconds": top_sh_seconds,
+          "align_arrays_sharded_full_3_seconds": arrays_sh_seconds,
+          "candidate_gathers": main_gathers, "tie_gathers": tie_gathers,
+          "oracle_pairs": len(oracle_b),
+          "oracle_lengths": [int(lengths_all[b]) for b in oracle_b],
+          "oracle_wait_seconds": oracle_full_wait, "golden": golden_full,
+          "equal": True, "seconds": time.perf_counter() - t0, **card})
+
     # --- 6. timings and kernels against plain versions at main shapes ----------
     enc = enc_q
     plan = engine.plan_tier_launches(enc, safe_pad=True)
@@ -1796,6 +2078,113 @@ def main():
              n * residues / float(np.median(long_times[n, "end"])) / 1e9
              for n in long_q}, **card})
 
+    # T1 and T2 over the batches of one full-mode query (phase 5f's: 256 aa,
+    # sw, gaps 3/1), each launch timed alone; then the parts of
+    # align(mode="full"): the score pass (K1), the batched traceback (host
+    # batching and refinement around T1 and T2) and the result building
+    t0 = time.perf_counter()
+    prof0 = torch.from_numpy(np.ascontiguousarray(
+        S[enc_q[0].astype(np.int64)])).to(dev)
+    qe0, te0 = tb_ends["sw", (GO, GE)]
+    t1_ms, t2_ms, t_cells, t_bytes, w_ops = [], [], 0, 0, 0
+    for batch in tb_batches:
+        tgt, tlen = traceback.pad_batch(tb_targets, batch)
+        qes, tes = traceback.walk_ends(tb_targets, batch, tgt.shape[0],
+                                       len(enc_q[0]), qe0, te0, "sw")
+        a1 = (prof0, torch.from_numpy(tgt).to(dev), GO, GE, "sw",
+              torch.from_numpy(tlen).to(dev))
+        t1_ms.append(time_launches(traceback._dir_matrix_batch, a1, 3))
+        dirs = traceback._dir_matrix_batch(*a1)
+        a2 = (dirs, torch.from_numpy(qes).to(dev),
+              torch.from_numpy(tes).to(dev), "sw")
+        t2_ms.append(time_launches(traceback._walk_batch_device, a2, 3))
+        w_ops += int((traceback._walk_batch_device(*a2)[0] != 255).sum())
+        t_cells += int(tlen.sum()) * len(enc_q[0])
+        t_bytes += int(tlen.sum()) * len(enc_q[0]) + 4 * tgt.size
+    del dirs
+    def t1_bound(cells, n_bytes):
+        ops = OPS_PER_CELL_DIRS * cells
+        ops_ms = ops / (N_SMS * INT32_LANES_PER_SM * max_sm_mhz * 1e6) * 1e3
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        return {"ops": ops, "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+    def t2_bound(steps):
+        return {"bound_ms": steps * 32 / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes"}
+
+    parts = {"score_pass": 0.0, "traceback": 0.0}
+    real_scores, real_batch = engine.search_scores, \
+        traceback.full_alignments_batch
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t1 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                parts[key] += time.perf_counter() - t1
+        return run
+
+    engine.search_scores = timed("score_pass", real_scores)
+    traceback.full_alignments_batch = timed("traceback", real_batch)
+    try:
+        full_calls = wall(lambda: al.align(queries[0], db, mode="full"), 3,
+                          warm=False)
+    finally:
+        engine.search_scores = real_scores
+        traceback.full_alignments_batch = real_batch
+    n_calls = len(full_calls)
+    call_s = sum(full_calls) / n_calls
+    dev_t = (sum(t1_ms) + sum(t2_ms)) * 1e-3
+    full_split = {
+        "call_seconds": full_calls,
+        "score_pass_seconds": parts["score_pass"] / n_calls,
+        "traceback_seconds": parts["traceback"] / n_calls,
+        "results_seconds": call_s - (parts["score_pass"]
+                                     + parts["traceback"]) / n_calls,
+        "t1_seconds": sum(t1_ms) * 1e-3, "t2_seconds": sum(t2_ms) * 1e-3,
+        "traceback_host_seconds": parts["traceback"] / n_calls - dev_t,
+        "t1_share": sum(t1_ms) * 1e-3 / call_s,
+        "t2_share": sum(t2_ms) * 1e-3 / call_s,
+    }
+    full_split["host_share"] = 1 - (dev_t + results["ragged_single"]["ms"]
+                                    * 1e-3) / call_s
+    long_label = "longest sw 3/1"
+    lb = tb_cases[long_label]
+    results["traceback_dirs"] = {
+        "ms": t1_ms[-1], "plain_ms": lb["plain_seconds"][0] * 1e3,
+        "max_abs_err": max(c["max_abs_err"] for c in tb_cases.values()),
+        "cells": lb["cells"], **t1_bound(lb["cells"], lb["cells"] + 4 * lb[
+            "B"] * lb["T_pad"]),
+        "ops_per_cell": OPS_PER_CELL_DIRS,
+        "shape": f"the longest batch of one 256-aa full-mode query (sw): "
+                 f"B {lb['B']}, T_pad {lb['T_pad']}, {lb['pairs']} pairs; "
+                 "query_ms over all its batches",
+        "query_ms": sum(t1_ms), "query_launches": len(t1_ms),
+        "query_bound_ms": t1_bound(t_cells, t_bytes)["bound_ms"],
+        "per_batch_ms": t1_ms,
+    }
+    results["traceback_walk"] = {
+        "ms": t2_ms[-1], "plain_ms": lb["plain_seconds"][1] * 1e3,
+        "max_abs_err": max(c["max_abs_err"] for c in tb_cases.values()),
+        "walk_steps": lb["walk_ops"], **t2_bound(lb["walk_ops"]),
+        "shape": "the same batch; path steps counted as the ops emitted; "
+                 "query_ms over all its batches",
+        "query_ms": sum(t2_ms), "query_launches": len(t2_ms),
+        "query_bound_ms": t2_bound(w_ops)["bound_ms"],
+        "per_batch_ms": t2_ms,
+    }
+    for key in ("traceback_dirs", "traceback_walk"):
+        emit({"phase": "kernel_timing", "kernel": key,
+              "mode": "sw full, 256 aa x the database",
+              **{k: v for k, v in results[key].items()
+                 if k != "per_batch_ms"}, **card})
+    emit({"phase": "full_mode_timing", **full_split,
+          "t1_per_batch_ms": t1_ms, "t2_per_batch_ms": t2_ms,
+          "cells": t_cells, "walk_ops": w_ops,
+          "seconds": time.perf_counter() - t0, **card})
+
     # --- 7. the kernels line, the card line, the result line ----------------
     # launches: the runs of the main path, the long-query path and the
     # sharded path, each counted from 0
@@ -1814,12 +2203,16 @@ def main():
          "pyopal_tpu/ops/pallas_ragged.py:732"),
         ("q8_narrow", "pyopal_tpu_torch/csrc/q8_narrow.cu",
          "pyopal_tpu/ops/pallas_q8.py:180"),
+        ("traceback_dirs", "pyopal_tpu_torch/csrc/traceback_dirs.cu",
+         "pyopal_tpu/ops/traceback.py:53"),
+        ("traceback_walk", "pyopal_tpu_torch/csrc/traceback_walk.cu",
+         "pyopal_tpu/ops/traceback.py:197"),
     ]
     kernels = []
     for name, source, replaces in entries:
         key = name
         launches = sum(c[name] for c in (counts, long_counts, sharded_counts,
-                                         x_counts))
+                                         x_counts, full_counts))
         r = results[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -4,14 +4,16 @@ A database-search aligner with the capabilities of PyOpal/Opal: one
 query (or a batch) scored against every sequence of a database with four
 affine-gap DP algorithms — Smith-Waterman local (``sw``),
 Needleman-Wunsch global (``nw``) and two semi-global variants (``hw``,
-``ov``) — in score and score+end modes.  Port of ``pyopal_tpu/__init__.py``
-with the same public names, except the FASTA/database I/O of
-``pyopal_tpu/io.py``, which is not ported yet.
+``ov``) — in score, score+end and full-alignment (CIGAR) modes.  Port
+of ``pyopal_tpu/__init__.py`` with the same public names, except the
+FASTA/database I/O of ``pyopal_tpu/io.py``, which is not ported yet.
 
 The searches run on an NVIDIA GPU through hand-written CUDA kernels
 (``csrc/ragged.cu``, ``csrc/q8.cu`` and, for queries beyond 4096
 residues that a single launch cannot take, the segmented
-``csrc/ragged_long.cu``), built with ``nvcc`` at first use.
+``csrc/ragged_long.cu``; full mode adds the traceback's direction pass
+``csrc/traceback_dirs.cu`` and walk ``csrc/traceback_walk.cu``), built
+with ``nvcc`` at first use.
 ``device="cpu"`` runs the same dispatch with the kernels' plain PyTorch
 versions instead.  `pyopal_tpu_torch.parallel` shards one search over
 several cards, one card, or the ranks of a `torch.distributed` group

@@ -88,8 +88,7 @@ def align(
     Keyword Arguments:
         gap_open (`int`): The gap opening penalty.
         gap_extend (`int`): The gap extension penalty.
-        mode (`str`): ``score`` (default) or ``end`` (``full`` is not
-            ported yet and raises `NotImplementedError`).
+        mode (`str`): ``score`` (default), ``end`` or ``full``.
         overflow (`str`): ``simple`` or ``buckets`` (API parity; the
             int32 engines cannot overflow).
         algorithm (`str`): ``nw``, ``hw``, ``ov`` or ``sw``.

@@ -1,15 +1,12 @@
 """The `Aligner`: validated search entry point.
 
 Port of ``pyopal_tpu/aligner.py``: the same parameter validation,
-`align`, `align_batch`, `align_arrays`, `align_many` and `align_async`
-in ``score`` and ``end`` modes, plus a ``device`` argument.  The device
-defaults to ``"cuda"``; without a CUDA device the constructor raises
-unless the caller asks for ``device="cpu"``, where the same dispatch
-runs the kernels' plain PyTorch versions.
-
-``mode="full"`` and `align_top_k` need the traceback of
-``pyopal_tpu/ops/traceback.py``, which is not ported yet (ROADMAP.md,
-"Modules to port"): they raise `NotImplementedError`.  The
+`align`, `align_top_k`, `align_batch`, `align_arrays`, `align_many` and
+`align_async` in ``score``, ``end`` and ``full`` modes, plus a ``device``
+argument.  The device defaults to ``"cuda"``; without a CUDA device the
+constructor raises unless the caller asks for ``device="cpu"``, where the
+same dispatch runs the kernels' plain PyTorch versions.  Full mode runs
+the score+ends pass, then the traceback of `ops.traceback` (T1, T2).  The
 ``overflow`` strategies are validated for API parity and are no-ops:
 every score is computed exactly in int32.
 """
@@ -34,12 +31,6 @@ _SEARCH_MODES = ("score", "end", "full")
 _OVERFLOW_MODES = ("simple", "buckets")
 _ALGORITHMS = ("nw", "hw", "ov", "sw")
 
-_FULL_MODE_MESSAGE = (
-    "mode='full' needs the traceback of pyopal_tpu/ops/traceback.py, "
-    "which is not ported yet (ROADMAP.md, 'Modules to port')"
-)
-
-
 def resolve_device(device) -> torch.device:
     """``None`` means ``"cuda"``; a CUDA device must be available."""
     dev = torch.device("cuda" if device is None else device)
@@ -51,14 +42,6 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device: {dev}")
     return dev
-
-
-def _check_mode(mode: str) -> None:
-    if mode not in _SEARCH_MODES:
-        raise ValueError(f"invalid search mode: {mode!r}")
-    if mode == "full":
-        raise NotImplementedError(_FULL_MODE_MESSAGE)
-
 
 
 def _clamp_slice(size: int, start: int, end: int):
@@ -203,8 +186,8 @@ class Aligner:
 
         Keyword Arguments:
             mode (`str`): ``score`` to only report scores (default),
-                ``end`` to also report end coordinates; ``full`` is not
-                ported yet and raises `NotImplementedError`.
+                ``end`` to also report end coordinates, ``full`` to
+                report full alignments.
             overflow (`str`): ``simple`` or ``buckets``; accepted for
                 API parity with the reference precision-escalation
                 pipeline — every score is computed exactly in int32,
@@ -218,14 +201,13 @@ class Aligner:
         Returns:
             `list` of `~pyopal_tpu_torch.ScoreResult`: One result per target
             in ``database[start:end]``; the actual type depends on
-            ``mode`` (`ScoreResult` / `EndResult`), and
+            ``mode`` (`ScoreResult` / `EndResult` / `FullResult`), and
             ``target_index`` is always the global database index.
 
         Raises:
             `ValueError`: When any parameter is invalid or the database
                 alphabet differs from the aligner's.
             `IndexError`: When ``end`` is lower than ``start``.
-            `NotImplementedError`: For ``mode="full"``.
 
         """
         if query is None:
@@ -236,7 +218,8 @@ class Aligner:
             ty = type(database).__name__
             raise TypeError(f"expected BaseDatabase, found {ty}")
 
-        _check_mode(mode)
+        if mode not in _SEARCH_MODES:
+            raise ValueError(f"invalid search mode: {mode!r}")
         if overflow not in _OVERFLOW_MODES:
             raise ValueError(f"invalid overflow mode: {overflow!r}")
         if algorithm not in _ALGORITHMS:
@@ -268,16 +251,64 @@ class Aligner:
                 device=self.device,
             )
 
-    def align_top_k(self, query, database, **kwargs):
-        """Full alignments for the best-scoring targets; not ported yet.
+    def align_top_k(
+        self,
+        query,
+        database,
+        *,
+        k: int = 100,
+        overflow: str = "buckets",
+        algorithm: str = "sw",
+        start: int = 0,
+        end: int = UINT32_MAX,
+    ):
+        """Full alignments for the ``k`` best-scoring targets.
 
-        It needs the traceback of ``pyopal_tpu/ops/traceback.py``
-        (ROADMAP.md, "Modules to port").
+        The reference's documented search workflow (score pass -> top
+        hits -> full-mode realign) as one call: one score+ends pass over
+        ``database[start:end)``, top-k selection on the host (ties broken
+        by database order), and batched traceback of only the selected
+        targets.
+
+        Returns:
+            `list` of `~pyopal_tpu_torch.FullResult`: At most ``k``
+            results sorted by descending score, with global
+            ``target_index``.
         """
-        raise NotImplementedError(
-            "align_top_k needs the traceback of pyopal_tpu/ops/traceback.py,"
-            " which is not ported yet (ROADMAP.md, 'Modules to port')"
+        if query is None:
+            raise TypeError("query cannot be None")
+        if not isinstance(database, BaseDatabase):
+            ty = type(database).__name__
+            raise TypeError(f"expected BaseDatabase, found {ty}")
+        if overflow not in _OVERFLOW_MODES:
+            raise ValueError(f"invalid overflow mode: {overflow!r}")
+        if algorithm not in _ALGORITHMS:
+            raise ValueError(f"invalid algorithm: {algorithm!r}")
+        if k < 0:
+            raise ValueError(f"invalid k: {k!r}")
+        if database.alphabet != self.alphabet:
+            raise ValueError(
+                "database and score matrix have different alphabets"
+            )
+        encoded = np.frombuffer(
+            database.alphabet.encode(query), dtype=np.uint8
         )
+        with database.lock.read:
+            start, end = _clamp_slice(database.get_size(), start, end)
+            if start > end:
+                return []
+            return engine.search_top_k(
+                database,
+                encoded,
+                self._int_matrix,
+                self.gap_open,
+                self.gap_extend,
+                algorithm,
+                k,
+                start,
+                end,
+                device=self.device,
+            )
 
     def align_batch(
         self,
@@ -299,13 +330,13 @@ class Aligner:
         queries]``.
 
         Arguments and result types match `align`; returns a list with
-        one result list per query (``ScoreResult`` / ``EndResult`` by
-        ``mode``).
+        one result list per query (``ScoreResult`` / ``EndResult`` /
+        ``FullResult`` by ``mode``).  ``mode="full"`` reconstructs every
+        target's alignment; for top-hit workflows prefer `align_top_k`,
+        which traces back only the winners.
         """
         if mode not in _SEARCH_MODES:
             raise ValueError(f"invalid batch search mode: {mode!r}")
-        if mode == "full":
-            raise NotImplementedError(_FULL_MODE_MESSAGE)
         if overflow not in _OVERFLOW_MODES:
             raise ValueError(f"invalid overflow mode: {overflow!r}")
         if algorithm not in _ALGORITHMS:
@@ -322,6 +353,18 @@ class Aligner:
             start, end = _clamp_slice(database.get_size(), start, end)
             if start > end:
                 return [[] for _ in encoded]
+            if mode == "full":
+                return engine.search_full_batch(
+                    database,
+                    start,
+                    end,
+                    encoded,
+                    self._int_matrix,
+                    self.gap_open,
+                    self.gap_extend,
+                    algorithm,
+                    device=self.device,
+                )
             scores, q_ends, t_ends = engine.search_scores_batch(
                 database,
                 start,
@@ -368,12 +411,13 @@ class Aligner:
             `dict`: ``{"scores": (n_queries, n_targets) int32}`` plus,
             for ``mode="end"``, ``"query_ends"`` and ``"target_ends"``
             arrays of the same shape (0-based coordinates, ``-1`` for
-            empty alignments).
+            empty alignments).  ``mode="full"`` adds ``"query_starts"``
+            / ``"target_starts"`` (``0`` for empty alignments) and
+            ``"cigars"``, an object array of SAM CIGAR strings
+            (`None` for empty alignments, like `FullResult.cigar`).
         """
         if mode not in _SEARCH_MODES:
             raise ValueError(f"invalid batch search mode: {mode!r}")
-        if mode == "full":
-            raise NotImplementedError(_FULL_MODE_MESSAGE)
         if overflow not in _OVERFLOW_MODES:
             raise ValueError(f"invalid overflow mode: {overflow!r}")
         if algorithm not in _ALGORITHMS:
@@ -394,6 +438,10 @@ class Aligner:
                 if mode != "score":
                     out["query_ends"] = empty.copy()
                     out["target_ends"] = empty.copy()
+                if mode == "full":
+                    out["query_starts"] = empty.copy()
+                    out["target_starts"] = empty.copy()
+                    out["cigars"] = np.empty(empty.shape, dtype=object)
                 return out
             scores, q_ends, t_ends = engine.search_scores_batch(
                 database,
@@ -407,13 +455,31 @@ class Aligner:
                 with_ends=(mode != "score"),
                 device=self.device,
             )
+            if mode == "full":
+                q_starts, t_starts, cigars = engine.full_arrays_from_ends(
+                    database,
+                    start,
+                    end,
+                    encoded,
+                    self._int_matrix,
+                    self.gap_open,
+                    self.gap_extend,
+                    algorithm,
+                    (scores, q_ends, t_ends),
+                    device=self.device,
+                )
         if mode == "score":
             return {"scores": scores}
-        return {
+        out = {
             "scores": scores,
             "query_ends": q_ends,
             "target_ends": t_ends,
         }
+        if mode == "full":
+            out["query_starts"] = q_starts
+            out["target_starts"] = t_starts
+            out["cigars"] = cigars
+        return out
 
     def align_many(
         self,
@@ -481,8 +547,6 @@ class Aligner:
         """
         if mode not in _SEARCH_MODES:
             raise ValueError(f"invalid batch search mode: {mode!r}")
-        if mode == "full":
-            raise NotImplementedError(_FULL_MODE_MESSAGE)
         if overflow not in _OVERFLOW_MODES:
             raise ValueError(f"invalid overflow mode: {overflow!r}")
         if algorithm not in _ALGORITHMS:

@@ -11,6 +11,9 @@
   search of one long query, and its plain version.
 - `group`  — kernel K6 (``csrc/group.cu``), one query over a stacked
   group of the grouped layout, and its plain version.
+- `traceback` — full mode's kernels T1, the direction pass
+  (``csrc/traceback_dirs.cu``), and T2, the walk
+  (``csrc/traceback_walk.cu``), their plain versions and the batching.
 - `engine` — routing, launches and result assembly.
 
 `packing` builds the flat and grouped layouts the kernels read; `_cuda` builds and

@@ -1,12 +1,16 @@
 """Search dispatcher: packs the database slice and runs the kernels.
 
-Port of the score/end part of ``pyopal_tpu/ops/engine.py``:
+Port of ``pyopal_tpu/ops/engine.py``:
 `search_scores_batch` (l.577), `search_scores`, `search` (l.995),
 `plan_tier_launches` (l.271) with its constants, the cohort dispatch
 (`_search_batch_pallas`, l.347, here `_search_batch_kernels`), the
 long-query dispatch (`_search_long_pallas`, l.690, here
 `_search_long_kernels`), the result assembly (`_assemble_flat*`),
-`_empty_query_results`, `_fp32_exact_domain` and the profile cache.
+`_empty_query_results`, `_fp32_exact_domain` and the profile cache;
+and full mode: `_full_rows_for` with its kernel-score guard (l.802),
+`_full_results_for` (l.830), `search_full_batch` (l.858),
+`full_arrays_from_ends` (l.904) and `search_top_k` (l.943), which run the
+score+ends pass and then the traceback of `ops.traceback` (T1, T2).
 
 Routing is decided before any launch and never after a failure:
 
@@ -42,8 +46,13 @@ import threading
 import numpy as np
 import torch
 
-from ..results import build_end_results, build_score_results
-from . import packing, q8, ragged, ragged_long, sweep
+from ..results import (
+    FullResult,
+    build_end_results,
+    build_score_results,
+    cigar_string,
+)
+from . import packing, q8, ragged, ragged_long, sweep, traceback
 
 
 def _flat_device(fp: packing.FlatPacked, device: torch.device):
@@ -497,6 +506,157 @@ def _empty_query_results(database, start, end, go, ge, algorithm):
     return scores.astype(np.int32), np.full(n, -1, np.int32), t_ends
 
 
+def _full_rows_for(
+    database, indices, query_enc, matrix, go, ge, algorithm, ends, device
+):
+    """Raw full-alignment rows for ``indices`` (global) given a score
+    pass: ``(targets, rows)`` where ``rows[k]`` is the
+    ``(score, q_start, t_start, q_end, t_end, ops)`` tuple for
+    ``indices[k]``, cross-checked against the kernel score.
+
+    ``ends`` holds per-selected-target ``(scores, q_ends, t_ends)``
+    1-D arrays aligned with ``indices``.
+    """
+    targets = [database.get_encoded(int(i)) for i in indices]
+    outs = traceback.full_alignments_batch(
+        query_enc, targets, matrix, go, ge, algorithm, ends, device=device
+    )
+    for k, row in enumerate(outs):
+        if row[0] != int(ends[0][k]):
+            # a kernel/traceback divergence is exactly the bug class
+            # this guard exists for; it must fire under -O too
+            raise RuntimeError(
+                f"traceback score {row[0]} != kernel score "
+                f"{int(ends[0][k])} for target {int(indices[k])}"
+            )
+    return targets, outs
+
+
+def _full_results_for(
+    database, indices, query_enc, matrix, go, ge, algorithm, ends, device
+):
+    """`FullResult` objects for ``indices`` (global) given a score pass.
+
+    ``ends`` holds per-selected-target ``(scores, q_ends, t_ends)``
+    1-D arrays aligned with ``indices``.
+    """
+    Q = int(query_enc.shape[0])
+    targets, outs = _full_rows_for(
+        database, indices, query_enc, matrix, go, ge, algorithm, ends,
+        device,
+    )
+    return [
+        FullResult(
+            int(indices[k]), score, qe, te, qs, ts, Q,
+            int(targets[k].shape[0]), ops,
+        )
+        for k, (score, qs, ts, qe, te, ops) in enumerate(outs)
+    ]
+
+
+def search_full_batch(
+    database,
+    start: int,
+    end: int,
+    queries_enc,
+    matrix: np.ndarray,
+    gap_open: int,
+    gap_extend: int,
+    algorithm: str,
+    device="cuda",
+):
+    """Batched ``mode="full"`` search: one score+ends pass over
+    ``database[start:end)`` for every query, then per-query batched
+    traceback of every target.
+
+    Returns one `FullResult` list per query.  Must be called with the
+    database read lock held.
+    """
+    scores, q_ends, t_ends = search_scores_batch(
+        database, start, end, queries_enc, matrix, gap_open, gap_extend,
+        algorithm, with_ends=True, device=device,
+    )
+    indices = np.arange(start, end)
+    return [
+        _full_results_for(
+            database, indices, queries_enc[qi], matrix, gap_open,
+            gap_extend, algorithm, (scores[qi], q_ends[qi], t_ends[qi]),
+            device,
+        )
+        for qi in range(len(queries_enc))
+    ]
+
+
+def full_arrays_from_ends(
+    database, start, end, queries_enc, matrix, go, ge, algorithm, ends,
+    device="cuda",
+):
+    """Columnar ``mode="full"`` assembly from a score+ends pass.
+
+    ``ends`` is ``(scores, q_ends, t_ends)``, each of shape
+    ``(n_queries, end - start)``.  Returns the extra full-mode arrays:
+    ``query_starts``/``target_starts`` int32 arrays of the same shape
+    (``0`` for empty alignments, matching the reference's
+    zero-initialized start locations) and ``cigars``, an object array
+    of SAM CIGAR strings (`None` for empty alignments, like
+    `FullResult.cigar`).  Must be called with the read lock held.
+    """
+    scores, q_ends, t_ends = ends
+    nq, n = scores.shape
+    q_starts = np.zeros((nq, n), dtype=np.int32)
+    t_starts = np.zeros((nq, n), dtype=np.int32)
+    cigars = np.empty((nq, n), dtype=object)
+    indices = np.arange(start, end)
+    for qi in range(nq):
+        _, rows = _full_rows_for(
+            database, indices, queries_enc[qi], matrix, go, ge, algorithm,
+            (scores[qi], q_ends[qi], t_ends[qi]), device,
+        )
+        for k, (_, qs, ts, _, _, ops) in enumerate(rows):
+            q_starts[qi, k] = qs
+            t_starts[qi, k] = ts
+            cigars[qi, k] = cigar_string(ops)
+    return q_starts, t_starts, cigars
+
+
+def search_top_k(
+    database,
+    query_enc: np.ndarray,
+    matrix: np.ndarray,
+    gap_open: int,
+    gap_extend: int,
+    algorithm: str,
+    k: int,
+    start: int,
+    end: int,
+    device="cuda",
+):
+    """Two-phase top-k search: score+ends pass, then realign k hits.
+
+    The reference's documented workflow (score pass -> top hits ->
+    full-mode realign) as one call: one score+ends pass over the slice,
+    the top ``k`` targets by score (ties broken by database order)
+    selected on the host with a stable argsort, and only those realigned.
+    Returns `FullResult` objects sorted by descending score;
+    ``target_index`` stays global.  Must be called with the database
+    read lock held.
+    """
+    n = max(end - start, 0)
+    k = max(min(k, n), 0)
+    if k == 0:
+        return []
+    scores, q_ends, t_ends = search_scores(
+        database, start, end, query_enc, matrix, gap_open, gap_extend,
+        algorithm, with_ends=True, device=device,
+    )
+    order = np.argsort(-scores, kind="stable")[:k]
+    sel = (scores[order], q_ends[order], t_ends[order])
+    return _full_results_for(
+        database, order + start, query_enc, matrix, gap_open, gap_extend,
+        algorithm, sel, device,
+    )
+
+
 def search(
     database,
     query_enc: np.ndarray,
@@ -509,12 +669,19 @@ def search(
     end: int,
     device="cuda",
 ):
-    """Score or score+end search over ``database[start:end)``; returns
-    result objects.  Must be called with the database read lock held."""
+    """Search over ``database[start:end)`` in ``mode``; returns result
+    objects.  Must be called with the database read lock held."""
     scores, q_ends, t_ends = search_scores(
         database, start, end, query_enc, matrix, gap_open, gap_extend,
         algorithm, with_ends=(mode != "score"), device=device,
     )
     if mode == "score":
         return build_score_results(start, scores)
-    return build_end_results(start, scores, q_ends, t_ends)
+    if mode == "end":
+        return build_end_results(start, scores, q_ends, t_ends)
+    # mode == "full": the two-phase reconstruction, T1 and T2 over padded
+    # batches of every target
+    return _full_results_for(
+        database, np.arange(start, end), query_enc, matrix, gap_open,
+        gap_extend, algorithm, (scores, q_ends, t_ends), device,
+    )

@@ -22,19 +22,24 @@ to every shard's device, each query-tier cohort runs the flat kernels
 once on every shard, and the per-shard outputs are all-gathered and
 reassembled into global target order.
 
+In full mode the score+ends pass runs on the mesh and the traceback (T1,
+T2) on this rank's first shard device.  `align_top_k_sharded` is the
+mesh analog of `pyopal_tpu_torch.Aligner.align_top_k`: a per-shard top-k
+candidate selection, a small candidate gather, an exact host merge, and
+the traceback of the winners.
+
 The port has one route.  On a CPU mesh the same dispatch runs the
 kernels' plain versions, as the port's engine does; the reference's
 second route for meshes off the TPU (``_xla_mesh_scores``, l.86), which
-exists because interpreted Pallas is slow there, is not ported.  Full
-mode and `align_top_k_sharded` need the traceback (``ops/traceback.py``,
-not ported yet) and raise `NotImplementedError`.
+exists because interpreted Pallas is slow there, is not ported: its
+top-k candidate pipeline runs on CPU and CUDA meshes alike.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..aligner import _FULL_MODE_MESSAGE, Aligner, _clamp_slice
+from ..aligner import Aligner, _clamp_slice
 from ..ops import engine, packing, q8, ragged
 from . import sharded_flat as sfm
 from .mesh import device_mesh
@@ -104,8 +109,7 @@ def align_arrays_sharded(
             name, or `None` for BLOSUM50 (the `Aligner` defaults).
         gap_open (`int`): gap opening penalty.
         gap_extend (`int`): gap extension penalty.
-        mode (`str`): ``"score"`` or ``"end"``; ``"full"`` raises
-            `NotImplementedError`.
+        mode (`str`): ``"score"``, ``"end"`` or ``"full"``.
         algorithm (`str`): ``"nw"``, ``"hw"``, ``"ov"`` or ``"sw"``.
         start (`int`): Start offset in the database.
         end (`int`): End offset in the database.
@@ -115,7 +119,9 @@ def align_arrays_sharded(
 
     Returns:
         `dict`: ``{"scores": (n_queries, n_targets) int32}`` plus, for
-        ``mode="end"``, ``"query_ends"`` and ``"target_ends"``.
+        ``mode="end"``, ``"query_ends"`` and ``"target_ends"``;
+        ``mode="full"`` adds ``"query_starts"`` / ``"target_starts"`` and
+        ``"cigars"`` exactly like `pyopal_tpu_torch.Aligner.align_arrays`.
     """
     # validation only: the searches run on the mesh's devices
     aligner = Aligner(
@@ -124,8 +130,6 @@ def align_arrays_sharded(
     )
     if mode not in ("score", "end", "full"):
         raise ValueError(f"invalid batch search mode: {mode!r}")
-    if mode == "full":
-        raise NotImplementedError(_FULL_MODE_MESSAGE)
     if algorithm not in ("nw", "hw", "ov", "sw"):
         raise ValueError(f"invalid algorithm: {algorithm!r}")
     if database.alphabet != aligner.alphabet:
@@ -158,6 +162,10 @@ def align_arrays_sharded(
             if with_ends:
                 out["query_ends"] = np.full((nq, n), -1, np.int32)
                 out["target_ends"] = np.full((nq, n), -1, np.int32)
+            if mode == "full":
+                out["query_starts"] = np.zeros((nq, n), np.int32)
+                out["target_starts"] = np.zeros((nq, n), np.int32)
+                out["cigars"] = np.empty((nq, n), dtype=object)
             return out
 
         # the kernels' predicate, as in the single-device engine; an
@@ -243,23 +251,204 @@ def align_arrays_sharded(
             )
             _store(list(enumerate(fb_idx)), s, qe, te)
 
+        if mode == "full":
+            q_starts, t_starts, cigars = engine.full_arrays_from_ends(
+                database, start, end, queries_enc, matrix, gap_open,
+                gap_extend, algorithm, (scores, q_ends, t_ends),
+                device=home,
+            )
+
     out = {"scores": scores}
     if with_ends:
         out["query_ends"] = q_ends
         out["target_ends"] = t_ends
+    if mode == "full":
+        out["query_starts"] = q_starts
+        out["target_starts"] = t_starts
+        out["cigars"] = cigars
     return out
 
 
-def align_top_k_sharded(queries, database, *, k: int = 100, **kwargs):
-    """Full alignments of each query's ``k`` best targets, mesh-wide;
-    not ported yet.
+def _merge_topk_host(v, gi, qec, tec, k, m, shard_counts):
+    """Exact global top-k from per-shard candidates, one query.
 
-    It needs the traceback of ``pyopal_tpu/ops/traceback.py`` and the
-    candidate pipeline that waits with it (ROADMAP.md, "Modules to
-    port").
+    ``v``/``gi``/``qec``/``tec``: ``(n_shards * m,)`` candidate rows
+    from `sharded_flat.sharded_topk_candidates` (shard s occupies
+    slots ``[s*m, (s+1)*m)``, sorted by descending score; invalid
+    slots carry ``gi < 0``).  Selection reproduces the single-device
+    `Aligner.align_top_k` contract bit-for-bit: descending score, ties
+    by ascending global target index.
+
+    Returns ``(indices, scores, q_ends, t_ends, complete)`` where
+    ``complete`` is False when some shard's candidate floor touches
+    the k-th score while the shard was truncated — the caller then
+    escalates ``m`` and retries (`align_top_k_sharded`).
     """
-    raise NotImplementedError(
-        "align_top_k_sharded needs the traceback of "
-        "pyopal_tpu/ops/traceback.py, which is not ported yet "
-        "(ROADMAP.md, 'Modules to port')"
+    valid = gi >= 0
+    vv, gg = v[valid], gi[valid]
+    qq, tt = qec[valid], tec[valid]
+    kk = min(k, gg.shape[0])
+    if kk == 0:
+        return (
+            np.zeros(0, np.int64),
+            np.zeros(0, np.int32),
+            np.zeros(0, np.int32),
+            np.zeros(0, np.int32),
+            True,
+        )
+    order = np.lexsort((gg, -vv))[:kk]
+    s_k = int(vv[order[-1]])
+    complete = True
+    n_shards = len(shard_counts)
+    for s in range(n_shards):
+        row_v = v[s * m : (s + 1) * m]
+        row_g = gi[s * m : (s + 1) * m]
+        cnt = int((row_g >= 0).sum())
+        if cnt == m and m < shard_counts[s] and int(row_v[cnt - 1]) >= s_k:
+            # the shard was truncated at or above the k-th score: it
+            # may hide equal-scoring targets with smaller indices
+            complete = False
+            break
+    return gg[order], vv[order], qq[order], tt[order], complete
+
+
+def align_top_k_sharded(
+    queries,
+    database,
+    *,
+    k: int = 100,
+    scoring_matrix=None,
+    gap_open: int = 3,
+    gap_extend: int = 1,
+    algorithm: str = "sw",
+    start: int = 0,
+    end: int = UINT32_MAX,
+    mesh=None,
+):
+    """Full alignments of each query's ``k`` best targets, mesh-wide.
+
+    The distributed form of `pyopal_tpu_torch.Aligner.align_top_k`: one
+    score+ends pass over the database shards (K1 once per shard per
+    query-tier cohort), a per-shard top-k selection with an ``O(k *
+    n_shards)`` candidate gather (the full ``(n_queries, n_targets)``
+    score matrix is never gathered), then batched traceback of only the
+    winners on this rank's first shard device.  Results carry global
+    ``target_index`` and match `align_top_k` exactly (descending score,
+    ties by database order; the merge escalates the per-shard candidate
+    count when score ties straddle a shard's candidate floor, to every
+    shard's whole list: at most two candidate gathers per cohort).
+    Empty queries, queries beyond 4096 residues and calls outside the
+    kernels' domain go through `engine.search_top_k` on that device.
+
+    Arguments match `align_arrays_sharded` plus ``k``; returns one
+    `list` of `~pyopal_tpu_torch.FullResult` (sorted by descending
+    score, at most ``k`` long) per query.
+    """
+    aligner = Aligner(
+        scoring_matrix, gap_open=gap_open, gap_extend=gap_extend,
+        device="cpu",
     )
+    if algorithm not in ("nw", "hw", "ov", "sw"):
+        raise ValueError(f"invalid algorithm: {algorithm!r}")
+    if k < 0:
+        raise ValueError(f"invalid k: {k!r}")
+    if database.alphabet != aligner.alphabet:
+        raise ValueError(
+            "database and score matrix have different alphabets"
+        )
+    if mesh is None:
+        mesh = device_mesh()
+    n_shards = mesh.n_shards
+    local_shards = sfm.local_shards_of_mesh(mesh)
+    home = mesh.devices[local_shards[0]]
+    matrix = aligner.scoring_matrix.int_data()
+    safe_pad = matrix.shape[1] <= 31
+
+    queries_enc = [
+        np.frombuffer(database.alphabet.encode(q), dtype=np.uint8)
+        for q in queries
+    ]
+    nq = len(queries_enc)
+    out = [[] for _ in range(nq)]
+
+    with database.lock.read:
+        start, end = _clamp_slice(database.get_size(), start, end)
+        n = max(end - start, 0)
+        if nq == 0 or n == 0 or k == 0:
+            return out
+
+        use_mesh = np.abs(matrix).max(
+            initial=0
+        ) <= 256 and engine._fp32_exact_domain(
+            database, start, end, queries_enc, matrix, gap_open, gap_extend,
+        )
+        mesh_ok = [
+            use_mesh
+            and q.shape[0] > 0
+            and ragged.supports(q.shape[0], algorithm, True, safe_pad=safe_pad)
+            for q in queries_enc
+        ]
+        mesh_idx = [i for i, ok in enumerate(mesh_ok) if ok]
+        fb_idx = [i for i, ok in enumerate(mesh_ok) if not ok]
+
+        if mesh_idx:
+            sf = _pack_sharded_cached(
+                database, n_shards, sfm.LANES, local_shards, start, end
+            )
+            shard_counts = np.bincount(
+                sf.inv_shard, minlength=n_shards
+            ).tolist()
+            gidx = sfm._gidx_device(sf, mesh)
+
+            # tier cohorts (one kernel launch per distinct Q_pad a shard)
+            cohorts: dict = {}
+            for i in mesh_idx:
+                tier = ragged.profile_qpad(max(len(queries_enc[i]), 8))
+                cohorts.setdefault(tier, []).append(i)
+
+            for tier in sorted(cohorts):
+                qidx = cohorts[tier]
+                cohort = [queries_enc[i] for i in qidx]
+                profs, qlens = engine._profiles_for_cohort(
+                    cohort, matrix, home
+                )
+                outs = sfm.sharded_search_flat_device(
+                    mesh, profs, qlens, sf, gap_open, gap_extend, algorithm,
+                    with_ends=True, safe_pad=safe_pad,
+                )
+                m = max(1, min(k, max(shard_counts)))
+                pending = list(range(len(qidx)))
+                while pending:
+                    v, gi, qec, tec = sfm.sharded_topk_candidates(
+                        mesh, outs, gidx, m
+                    )
+                    still = []
+                    for row in pending:
+                        sel = _merge_topk_host(
+                            v[row], gi[row], qec[row], tec[row],
+                            k, min(m, v.shape[1] // n_shards),
+                            shard_counts,
+                        )
+                        idxs, scores, qes, tes, complete = sel
+                        if not complete and m < max(shard_counts):
+                            still.append(row)
+                            continue
+                        out[qidx[row]] = engine._full_results_for(
+                            database, idxs + start, cohort[row], matrix,
+                            gap_open, gap_extend, algorithm,
+                            (scores, qes, tes), home,
+                        )
+                    pending = still
+                    # escalation is tie-driven and rare: go straight to
+                    # the complete-by-construction gather (every shard's
+                    # whole candidate list) instead of doubling; at most
+                    # two candidate gathers per cohort, and the second
+                    # merge cannot be incomplete
+                    m = max(shard_counts)
+
+        for i in fb_idx:
+            out[i] = engine.search_top_k(
+                database, queries_enc[i], matrix, gap_open, gap_extend,
+                algorithm, k, start, end, device=home,
+            )
+    return out

@@ -14,9 +14,10 @@ O(n) plan from the sequence lengths) but fills the uint8 payloads of its
 own shards only (`pack_flat_sharded(..., local_shards=...)`), so a
 rank's packed memory is O(database / ranks) at one byte per residue.
 
-`_gidx_device` and `sharded_topk_candidates`, the reference's candidate
-pipeline of ``align_top_k_sharded``, wait with it for the traceback
-(``ops/traceback.py``, not ported yet).
+`_gidx_device` and `sharded_topk_candidates` are the candidate pipeline
+of ``align_top_k_sharded``: each shard selects its best ``m`` scores per
+query with `torch.topk` on its own device, and only those candidates are
+gathered.
 """
 
 from __future__ import annotations
@@ -340,3 +341,69 @@ def sharded_search_flat_q8(
         3, n_g * q8.QB, -1
     )[:, :, flatpos]
     return out[0], out[1], out[2]
+
+
+def _gidx_device(sf: ShardedFlat, mesh):
+    """Each local shard's global-index map on its device, cached on the
+    pack per mesh.
+
+    ``{shard: (nblk_max * lanes,) int32}``: entry ``p`` is the global
+    target index packed at flat position ``p`` of the shard, or ``-1``
+    for padding lanes and blocks.
+    """
+    cache = sf.__dict__.setdefault("_gidx_dev", {})
+    hit = cache.get(mesh)
+    if hit is None:
+        nblk_max = sf.lengths.shape[1]
+        gidx = np.full((sf.n_shards, nblk_max * sf.lanes), -1, np.int32)
+        gidx[sf.inv_shard, sf.inv_pos] = np.arange(
+            sf.n_targets, dtype=np.int32)
+        hit = {s: torch.from_numpy(gidx[s]).to(mesh.devices[s])
+               for s in local_shards_of_mesh(mesh)}
+        cache.clear()  # one mesh at a time, as `_device_arrays`
+        cache[mesh] = hit
+    return hit
+
+
+NEG_SENTINEL = -(2**31) + 1
+
+
+def sharded_topk_candidates(mesh, outs, gidx, m: int):
+    """Per-shard top-``m`` selection and the candidates' all-gather.
+
+    ``outs``: `sharded_search_flat_device`'s ``{shard: (scores, q_ends,
+    t_ends)}``, each ``(n_q, nblk, lanes)``; ``gidx``: the matching
+    `_gidx_device` map.  Each shard selects its ``m`` best scores per
+    query (padding positions masked to `NEG_SENTINEL`) with
+    `torch.topk` on its device, and only those candidates, ``O(m *
+    n_shards)`` values instead of ``O(n_targets)``, are gathered.
+    Returns ``(values, global_indices, q_ends, t_ends)`` numpy arrays of
+    shape ``(n_q, n_shards * m)``, shard ``s`` in columns ``[s * m, (s +
+    1) * m)`` sorted by descending score; invalid slots carry
+    `NEG_SENTINEL` / ``-1``.  The same on every rank.
+
+    Selection within a shard is by score only (ties in any order): exact
+    database-order tie-breaking happens in the host merge, which
+    escalates ``m`` when a shard's candidate floor touches the global
+    k-th score (`pyopal_tpu_torch.parallel.api.align_top_k_sharded`).
+    """
+    local = {}
+    for s, (sc, qe, te) in outs.items():
+        n_q = sc.shape[0]
+        gi = gidx[s]
+        mm = max(1, min(m, gi.shape[0]))
+        fs = torch.where(gi[None] >= 0, sc.reshape(n_q, -1),
+                         torch.tensor(NEG_SENTINEL, dtype=sc.dtype,
+                                      device=sc.device))
+        v, pos = torch.topk(fs, mm, dim=1, sorted=True)
+        local[s] = torch.stack([
+            v,
+            gi[pos],  # padding slots carry -1 from gidx itself
+            qe.reshape(n_q, -1).gather(1, pos),
+            te.reshape(n_q, -1).gather(1, pos),
+        ])
+    # (n_shards, 4, n_q, mm) -> (4, n_q, n_shards * mm)
+    stacked = _gather_host(mesh, local)
+    out = stacked.transpose(1, 2, 0, 3).reshape(
+        4, stacked.shape[2], -1)
+    return out[0], out[1], out[2], out[3]

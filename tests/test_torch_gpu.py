@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from pyopal_tpu_torch.matrices import ScoringMatrix
-from pyopal_tpu_torch.ops import group, packing, q8, ragged, ragged_long
+from pyopal_tpu_torch.ops import (
+    group, naive, packing, q8, ragged, ragged_long, traceback,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -541,3 +543,92 @@ def test_sharded_search_on_two_cuda_shards_matches_aligner(dev):
         assert got.keys() == want.keys()
         for key in want:
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def _tb_batch(dev, seed, Q=70, n_real=13, B=16, T_pad=256):
+    """A traceback batch as the engine builds one: B a power of two with
+    ``B - n_real`` padding pairs (length 0), T_pad a multiple of 128, a
+    query of several 32-row strips."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 20, Q).astype(np.uint8)
+    lens = np.zeros(B, np.int32)
+    lens[:n_real] = rng.integers(1, T_pad + 1, n_real)
+    lens[:3] = [T_pad, 1, 127]
+    tgt = np.zeros((B, T_pad), np.int32)
+    for b in range(n_real):
+        tgt[b, : lens[b]] = rng.integers(0, 20, lens[b])
+    tgt[0, 9:39] = q[:30]
+    prof = np.ascontiguousarray(np.asarray(S, np.int32)[q.astype(np.int64)])
+    return (q, tgt, lens, torch.from_numpy(prof).to(dev),
+            torch.from_numpy(tgt).to(dev), torch.from_numpy(lens).to(dev))
+
+
+@pytest.mark.parametrize("gaps", [(3, 1), (1, 3)])
+@pytest.mark.parametrize("algo", ["nw", "hw", "ov", "sw"])
+def test_traceback_dirs_kernel_matches_plain(dev, algo, gaps):
+    """T1 against its plain version, byte for byte: at the pairs' lengths
+    (columns past each length zero, padding pairs included) and at every
+    column."""
+    _, _, _, prof, tgt, lens = _tb_batch(dev, 40)
+    before = traceback.launches["traceback_dirs"]
+    for n in (lens, torch.full_like(lens, tgt.shape[1])):
+        got = traceback._dir_matrix_batch(prof, tgt, *gaps, algo, n)
+        want = traceback.dir_matrix_reference(prof, tgt, *gaps, algo, n)
+        _equal([got], [want])
+    assert traceback.launches["traceback_dirs"] == before + 2
+
+
+@pytest.mark.parametrize("gaps", [(3, 1), (1, 3)])
+@pytest.mark.parametrize("algo", ["nw", "hw", "ov", "sw"])
+def test_traceback_walk_kernel_matches_plain(dev, algo, gaps):
+    """T2 against its plain version on the plain direction bytes:
+    ``buf``, ``i``, ``j``; the oracle's ends, an end on column 0
+    (``te == -1``) for hw/ov, and (-1, -1) for padding pairs and sw's
+    empty alignments."""
+    q, tgt, lens, prof, tgt_d, lens_d = _tb_batch(dev, 41)
+    dirs = traceback.dir_matrix_reference(prof, tgt_d, *gaps, algo, lens_d)
+    qes = np.full(len(lens), -1, np.int32)
+    tes = np.full(len(lens), -1, np.int32)
+    for b, n in enumerate(lens):
+        if n:
+            _, qe, te = naive.score_end(q, tgt[b, :n], S, *gaps, algo)
+            if algo != "sw" or (qe >= 0 and te >= 0):
+                qes[b], tes[b] = qe, te
+    if algo in ("hw", "ov"):
+        qes[5], tes[5] = len(q) - 1, -1
+    if algo == "sw":
+        qes[6], tes[6] = -1, -1
+    args = (dirs, torch.from_numpy(qes).to(dev),
+            torch.from_numpy(tes).to(dev), algo)
+    before = traceback.launches["traceback_walk"]
+    _equal(traceback._walk_batch_device(*args),
+           traceback.walk_reference(*args))
+    assert traceback.launches["traceback_walk"] == before + 1
+
+
+def test_full_mode_on_the_card_matches_cpu(dev):
+    """``align(mode="full")`` and ``align_top_k`` on the card (K1, T1,
+    T2) against the CPU port (the plain versions), every algorithm."""
+    import pyopal_tpu_torch as pt
+
+    rng = np.random.default_rng(13)
+    letters = "ARNDCQEGHILKMFPSTWYV"
+    seqs = ["".join(letters[c] for c in rng.integers(0, 20, n))
+            for n in rng.integers(0, 300, 200)]
+    query = "".join(letters[c] for c in rng.integers(0, 20, 90))
+    seqs[7] = "MK" + query[10:70] + "W"
+    db = pt.Database(seqs)
+    card, cpu = pt.Aligner(device=dev), pt.Aligner(device="cpu")
+
+    def rows(hits):
+        return [(h.target_index, h.score, h.query_start, h.query_end,
+                 h.target_start, h.target_end, h.cigar()) for h in hits]
+
+    for algo in ("nw", "hw", "ov", "sw"):
+        before = dict(traceback.launches)
+        got = card.align(query, db, mode="full", algorithm=algo)
+        assert all(traceback.launches[k] > before[k] for k in before)
+        assert rows(got) == rows(cpu.align(query, db, mode="full",
+                                           algorithm=algo))
+        assert rows(card.align_top_k(query, db, k=9, algorithm=algo)) == rows(
+            cpu.align_top_k(query, db, k=9, algorithm=algo))

@@ -139,7 +139,10 @@ def test_convert_builds_equal_state():
 
 
 def test_import_leaves_jax_out():
-    code = "import sys, pyopal_tpu_torch; print('jax' in sys.modules)"
+    code = (
+        "import sys, pyopal_tpu_torch, pyopal_tpu_torch.ops.traceback, "
+        "pyopal_tpu_torch.parallel; print('jax' in sys.modules)"
+    )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True,
         text=True, check=True,

@@ -13,6 +13,7 @@ Run as a script (``python tests/test_torch_parallel.py <rank> <init
 file> <out file>``), this file is one rank of that two-process group.
 """
 
+import json
 import os
 import random
 import subprocess
@@ -28,6 +29,7 @@ import pyopal_tpu_torch as pt
 from pyopal_tpu.ops import pallas_kernel as pk
 from pyopal_tpu.ops import xla as ref_xla
 from pyopal_tpu.parallel import align_arrays_sharded as ref_sharded
+from pyopal_tpu.parallel import align_top_k_sharded as ref_top_k_sharded
 from pyopal_tpu.parallel import device_mesh as ref_mesh
 from pyopal_tpu.parallel import sharded as ref_sh
 from pyopal_tpu.parallel import sharded_flat as ref_sfm
@@ -72,7 +74,7 @@ def _check(queries, seqs, alphabet=None, ref_matrix=None, **kw):
     want = ref_sharded(queries, ref_db, mesh=ref_mesh(4), **ref_kw)
     assert got.keys() == want.keys()
     for key in want:
-        assert got[key].dtype == np.int32, key
+        assert got[key].dtype == (object if key == "cigars" else np.int32), key
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
@@ -81,12 +83,16 @@ def _calls():
             sweep.launches)
 
 
-@pytest.mark.parametrize("mode", ["score", "end"])
-@pytest.mark.parametrize("algo", ALGOS)
+@pytest.mark.parametrize(
+    "algo, mode",
+    [(a, m) for a in ALGOS for m in ("score", "end")]
+    + [("sw", "full"), ("ov", "full")])
 def test_sharded_matches_reference(algo, mode):
     """Mixed tiers: one full q8 group and a K1 leftover at tier 64, a K1
     query at tier 128, beside an empty query; each kernel cohort runs
-    once per shard."""
+    once per shard.  Full mode at sw (empty local alignments) and ov
+    (free ends on both sides); `tests/test_torch_traceback.py` covers
+    the traceback at every algorithm."""
     queries = (_random_seqs(9, 30, 60, seed=2) + [""]
                + _random_seqs(1, 70, 120, seed=3))
     before = _calls()
@@ -157,10 +163,21 @@ def test_validation_errors_match_reference():
     with pytest.raises(ValueError) as err:
         align_arrays_sharded(["ACDEF"], other, mesh=_mesh4())
     assert str(err.value) == str(ref_err.value)
-    with pytest.raises(NotImplementedError, match="traceback"):
-        align_arrays_sharded(["ACDEF"], db, mesh=_mesh4(), mode="full")
-    with pytest.raises(NotImplementedError, match="traceback"):
-        align_top_k_sharded(["ACDEF"], db, k=3)
+    for kw in (dict(k=-1), dict(algorithm="zz"), dict(gap_open="x")):
+        with pytest.raises(Exception) as ref_err:
+            ref_top_k_sharded(["AA"], ref_db, mesh=ref_mesh(4), **kw)
+        with pytest.raises(type(ref_err.value)) as err:
+            align_top_k_sharded(["AA"], db, mesh=_mesh4(), **kw)
+        assert str(err.value) == str(ref_err.value)
+    with pytest.raises(ValueError) as ref_err:
+        ref_top_k_sharded(["AA"], ref_other, mesh=ref_mesh(4))
+    with pytest.raises(ValueError) as err:
+        align_top_k_sharded(["AA"], other, mesh=_mesh4())
+    assert str(err.value) == str(ref_err.value)
+    assert align_top_k_sharded([], db, k=3, mesh=_mesh4()) == []
+    assert align_top_k_sharded(["AA"], pt.Database(), k=3,
+                               mesh=_mesh4()) == [[]]
+    assert align_top_k_sharded(["AA"], db, k=0, mesh=_mesh4()) == [[]]
 
 
 def test_empty_inputs_and_doctest_scores():
@@ -337,6 +354,85 @@ def test_top_k_merge_matches_reference():
         np.testing.assert_array_equal(v, scores[top])
 
 
+def _full(results):
+    return [
+        (r.target_index, r.score, r.query_end, r.target_end, r.query_start,
+         r.target_start, r.query_length, r.target_length, r.alignment)
+        for r in results
+    ]
+
+
+def _check_top_k(queries, seqs, k, gathers=None, **kw):
+    """`align_top_k_sharded` over 4 CPU shards against the reference's
+    single-device `align_top_k`, result by result; ``gathers``: the
+    candidate gathers the call must make."""
+    db, ref_db = _dbs(seqs)
+    made = []
+    real = sfm.sharded_topk_candidates
+
+    def counted(*args):
+        made.append(args[-1])
+        return real(*args)
+
+    sfm.sharded_topk_candidates = counted
+    try:
+        got = align_top_k_sharded(queries, db, k=k, mesh=_mesh4(), **kw)
+    finally:
+        sfm.sharded_topk_candidates = real
+    ref_al = po.Aligner(gap_open=kw.get("gap_open", 3),
+                        gap_extend=kw.get("gap_extend", 1))
+    al = pt.Aligner(gap_open=kw.get("gap_open", 3),
+                    gap_extend=kw.get("gap_extend", 1), device="cpu")
+    algo = kw.get("algorithm", "sw")
+    assert len(got) == len(queries)
+    for qi, q in enumerate(queries):
+        want = _full(ref_al.align_top_k(q, ref_db, k=k, algorithm=algo))
+        assert _full(got[qi]) == want, qi
+        assert _full(al.align_top_k(q, db, k=k, algorithm=algo)) == want
+    if gathers is not None:
+        assert len(made) == gathers, made
+    return made
+
+
+@pytest.mark.parametrize("algo, k", [("sw", 13), ("nw", 7), ("ov", 7),
+                                     ("hw", 150)])
+def test_top_k_sharded_matches_reference(algo, k):
+    """The candidate pipeline (per-shard `torch.topk`, the gather, the
+    exact host merge): one gather per cohort, ``k`` past the database
+    size included (hw)."""
+    seqs = _random_seqs(120 if k == 150 else 300, 5, 120, seed=11)
+    _check_top_k(_random_seqs(3, 40, 60, seed=12), seqs, k, gathers=1,
+                 algorithm=algo)
+
+
+def test_top_k_sharded_tie_escalation():
+    """Many identical targets put equal scores across every shard's
+    candidate floor: the merge escalates to every shard's whole list (a
+    second gather) and still picks the k smallest global indices among
+    the ties (``tests/test_sharded_api.py``'s construction)."""
+    rng = random.Random(17)
+    base = "".join(rng.choice(AMINO) for _ in range(40))
+    targets = [base] * 120 + [
+        "".join(rng.choice(AMINO) for _ in range(rng.randint(10, 80)))
+        for _ in range(80)
+    ]
+    rng.shuffle(targets)
+    made = _check_top_k([base], targets, 15, gathers=2)
+    assert made[0] == 15 and made[1] > 15
+
+
+def test_top_k_sharded_mixed_tiers_and_fallbacks():
+    """Queries of 70, 140 and 210 residues (two tier cohorts), and an
+    empty query and a 5,000-residue one, which take
+    `engine.search_top_k`."""
+    seqs = _random_seqs(150, 5, 100, seed=20)
+    qs = ["".join(random.Random(21 + i).choice(AMINO)
+                  for _ in range((i + 1) * 70)) for i in range(3)]
+    _check_top_k(qs, seqs, 9, gathers=2)
+    long_q = "".join(random.Random(18).choice(AMINO) for _ in range(5000))
+    _check_top_k(["", long_q], seqs[:60], 5, gathers=0)
+
+
 def test_device_mesh():
     mesh = device_mesh(4, device="cpu")
     assert mesh.n_shards == 4 and mesh.shape == {"db": 4}
@@ -361,10 +457,14 @@ MP_TARGETS = _random_seqs(300, 5, 120, seed=42)
 
 def test_two_process_gloo_matches_single_process(tmp_path):
     """Two ranks of a ``gloo`` group, 2 of the 4 shards each, return the
-    single-process result, and each rank packs only its own shards'
-    payloads (at most half of the packed bytes)."""
+    single-process result (``align_arrays_sharded``, and
+    ``align_top_k_sharded``, whose candidates are gathered over the
+    ranks), and each rank packs only its own shards' payloads (at most
+    half of the packed bytes)."""
     want = align_arrays_sharded(MP_QUERIES, pt.Database(MP_TARGETS),
                                 mode="end", mesh=_mesh4())
+    want_top = align_top_k_sharded(MP_QUERIES[:2], pt.Database(MP_TARGETS),
+                                   k=7, mesh=_mesh4())
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -399,6 +499,8 @@ def test_two_process_gloo_matches_single_process(tmp_path):
         for key in want:
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
         assert int(got["local_bytes"]) * 2 <= int(got["total_bytes"])
+        assert json.loads(str(got["top_k"])) == [
+            [list(t) for t in _full(x)] for x in want_top]
 
 
 def _rank_main(rank, init, out):
@@ -418,10 +520,13 @@ def _rank_main(rank, init, out):
     packs = [v for v in db._pack_cache.values()
              if isinstance(v, sfm.ShardedFlat)]
     assert len(packs) == 2  # the K2 (512-lane) and K1 (128-lane) packs
+    # the candidate gather of top-k across the two ranks
+    top = align_top_k_sharded(MP_QUERIES[:2], db, k=7, mesh=mesh)
     for sf in packs:
         assert set(sf.payloads) == local, sorted(sf.payloads)
     np.savez(
-        out, **got,
+        out, **got, top_k=json.dumps(
+            [[list(t) for t in _full(x)] for x in top]),
         local_bytes=sum(sf.local_payload_bytes for sf in packs),
         total_bytes=sum(sf.rows_max * sf.lanes * sf.n_shards for sf in packs),
     )

@@ -273,20 +273,106 @@ def test_golden_values():
     assert sorted(r.score for r in hits) == [23, 31, 41]
 
 
-def test_full_mode_and_top_k_not_ported():
+def _full(results):
+    return [
+        (r.target_index, r.score, r.query_end, r.target_end, r.query_start,
+         r.target_start, r.query_length, r.target_length, r.alignment,
+         r.cigar())
+        for r in results
+    ]
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_full_mode_and_top_k_match_reference(seed):
+    """Full mode and top-k through every entry point, on the seeded
+    configs of ``tests/test_fuzz.py``: starts, ends, CIGARs and result
+    order equal the reference's."""
+    letters, m, go, ge, algo, _, targets, query = _case(seed)
+    ref_al, ref_db, al, db = _both(letters, m, go, ge, targets)
+    rng = random.Random(seed ^ 0xF011)
+    others = [
+        "".join(rng.choices(letters[: max(len(letters) - 1, 1)], k=k))
+        for k in (0, 23)
+    ]
+    queries = [query] + others
+    kw = dict(mode="full", algorithm=algo)
+
+    assert _full(al.align(query, db, **kw)) == _full(
+        ref_al.align(query, ref_db, **kw))
+    want = [_full(x) for x in ref_al.align_batch(queries, ref_db, **kw)]
+    assert [_full(x) for x in al.align_batch(queries, db, **kw)] == want
+    assert [_full(x) for x in al.align_many(queries, db, batch_size=2,
+                                            **kw)] == want
+    futures = [al.align_async(q, db, **kw) for q in queries]
+    assert [_full(f.result()) for f in futures] == want
+    got = al.align_arrays(queries, db, start=1, **kw)
+    ref = ref_al.align_arrays(queries, ref_db, start=1, **kw)
+    assert got.keys() == ref.keys()
+    for key in ref:
+        assert got[key].dtype == ref[key].dtype, key
+        np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+    for k in (0, 3, 100):
+        assert _full(al.align_top_k(query, db, k=k, algorithm=algo)) == _full(
+            ref_al.align_top_k(query, ref_db, k=k, algorithm=algo))
+    top = al.align_top_k(query, db, k=4, algorithm=algo, start=2, end=30)
+    assert _full(top) == _full(ref_al.align_top_k(
+        query, ref_db, k=4, algorithm=algo, start=2, end=30))
+    got = pt.align(query, db, al.scoring_matrix, gap_open=go, gap_extend=ge,
+                   ordered=True, threads=2, device="cpu", **kw)
+    ref = po.align(query, ref_db, ref_al.scoring_matrix, gap_open=go,
+                   gap_extend=ge, ordered=True, threads=2, **kw)
+    assert _full(got) == _full(ref)
+
+
+def test_full_mode_golden_values():
     al = pt.Aligner(device="cpu")
     db = pt.Database(["AACCGCTG"])
-    for call in (
-        lambda: al.align("ACC", db, mode="full"),
-        lambda: al.align_batch(["ACC"], db, mode="full"),
-        lambda: al.align_arrays(["ACC"], db, mode="full"),
-        lambda: al.align_async("ACC", db, mode="full"),
-        lambda: al.align_top_k("ACC", db),
+    (nw,) = al.align("ACCTCG", db, mode="full", algorithm="nw")
+    assert (nw.score, nw.query_end, nw.target_end) == (44, 5, 7)
+    assert (nw.query_start, nw.target_start) == (0, 0)
+    assert nw.cigar() == "1D5M1D1M"
+    (sw,) = al.align("ACCTCG", db, mode="full", algorithm="sw")
+    assert (sw.score, sw.target_start) == (47, 1)
+    (top,) = al.align_top_k("ACCTCG", db, k=5, algorithm="nw")
+    assert _full([top]) == _full([nw])
+
+
+def test_full_mode_empty_slice_and_errors_match_reference():
+    ref_al, ref_db = po.Aligner(), po.Database(["MKVLAT", "MKV", "AAAA"])
+    al, db = pt.Aligner(device="cpu"), pt.Database(["MKVLAT", "MKV", "AAAA"])
+    got = al.align_arrays(["MKV", "LAT"], db, mode="full", start=5)
+    ref = ref_al.align_arrays(["MKV", "LAT"], ref_db, mode="full", start=5)
+    assert got.keys() == ref.keys()
+    for key in ref:
+        assert got[key].shape == ref[key].shape == (2, 0), key
+        assert got[key].dtype == ref[key].dtype, key
+    assert al.align_top_k("MKV", db, start=5) == []
+    other = pt.Database(["ACGT"], alphabet=pt.Alphabet("ACGT"))
+    ref_other = po.Database(["ACGT"], alphabet=po.Alphabet("ACGT"))
+    for call, args, kw in (
+        ("align_top_k", ("MKV",), dict(k=-1)),
+        ("align_top_k", ("MKV",), dict(algorithm="xx")),
+        ("align_top_k", ("MKV",), dict(overflow="xx")),
+        ("align_top_k", (None,), {}),
+        ("align_top_k", ("MKV", "other"), {}),
+        ("align_top_k", ("MKV", "alphabet"), {}),
+        ("align_top_k", ("MKV",), dict(start=-1)),
+        ("align", ("MKV",), dict(mode="fast")),
+        ("align_arrays", (["MKV"],), dict(mode="fast")),
     ):
-        with pytest.raises(NotImplementedError, match="traceback"):
-            call()
-    with pytest.raises(ValueError, match="invalid search mode"):
-        al.align("ACC", db, mode="fast")
+        def run(aligner, database, alien):
+            a = list(args)
+            if len(a) == 1:
+                a.append(database)
+            elif a[1] == "alphabet":
+                a[1] = alien
+            return getattr(aligner, call)(*a, **kw)
+
+        with pytest.raises(Exception) as ref_err:
+            run(ref_al, ref_db, ref_other)
+        with pytest.raises(type(ref_err.value)) as err:
+            run(al, db, other)
+        assert str(err.value) == str(ref_err.value), (call, kw)
 
 
 def test_streams_and_pickling():
