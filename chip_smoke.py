@@ -41,8 +41,12 @@ Phases (the first failure ends the run with a nonzero exit code):
    and T2 byte for byte against their plain versions on the batches of
    one 256-aa full-mode query over the main database (the shortest, the
    median and the longest, B = 64 at T_pad 1,920, at all four algorithms
-   and gaps 3/1; the median at 1/3 and 0/0), on a tie-heavy batch and
-   under a random 32 x 32 matrix;
+   and gaps 3/1; the median at 1/3 and 0/0), on a tie-heavy batch, under
+   a random 32 x 32 matrix, and where the walks change hands: queries of
+   1, 15-17, 255-257 and 511-513 rows (a T1 thread's 8 rows, its 256-row
+   pass, two passes) against targets on either side of 32, 64 and 128
+   columns (T1's symbol tiles, T2's 64 x 64 tiles) at sw and nw 3/1 and
+   sw -1/2;
 4. the golden values through `pyopal_tpu_torch.Aligner` on ``cuda``;
 5. the main path at full size: a synthetic 12,071-sequence database
    (the generator of ``bench.py``, seed 12071) searched with 67
@@ -113,9 +117,12 @@ Phases (the first failure ends the run with a nonzero exit code):
    groups beside it),
    end-to-end throughput, long-query and sharded call times, and each
    kernel's launches in one ``align_arrays`` and one ``align`` call,
-   counted; T1 and T2 per batch of one full-mode query, their bounds (T1:
-   the direction bytes, or the recurrence's 16 int32 operations a cell at
-   the int32 rate; T2: a 32-byte sector a walk step), and the parts of
+   counted; T1 and T2 per batch of one full-mode query (three launches
+   queued behind a sleep on the card, so that the host's time stays out),
+   their bounds (T1: the direction bytes, or the recurrence's 16 int32
+   operations a cell at the int32 rate; T2: a 32-byte sector a walk step),
+   the longest walk of each launch and T2's clock cycles a step on it, T1's
+   threads a pair and rows a thread and T2's tile, and the parts of
    ``align(mode="full")`` (score pass, traceback, result building) with
    the host's share;
 7. the ``kernels`` line, then the card line, then the result line.
@@ -163,8 +170,9 @@ OPS_PER_PAIR_NARROW = 5.5
 #: the diagonal add (1), its max with E (1), the clamp at 0 (1), the max
 #: with F (1), the code's compares of H with the diagonal, E and 0 (3), the
 #: open bits' compares (2) and packing the three fields into a byte (2);
-#: what the kernel's loop runs beyond them (shuffles, loads, lane 0's
-#: boundary row, the stores' branches) is its gap to the bound
+#: what the kernel runs beyond them (the code's selects, a step's
+#: shuffles, loads and stores) and the schedulers a batch of few pairs
+#: leaves idle are its gap to the bound
 OPS_PER_CELL_DIRS = 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT32_LANES_PER_SM = 64
@@ -865,6 +873,38 @@ def main():
     q32 = rng.integers(0, 32, 256).astype(np.uint8)
     tb_compare("random 32x32 nw 3/1", q32, m32, r32, list(range(64)), "nw",
                (GO, GE), np.full(64, 255), np.array([len(t) - 1 for t in r32]))
+    # where the walks change hands: queries on either side of a T1 thread's
+    # 8 rows, of its 256-row pass and of two passes; targets on either side
+    # of its 32-column symbol tiles and of T2's 64-row, 64-column tiles,
+    # each holding a stretch of the query; sw at 3/1 and nw at 3/1 (the
+    # boundary rows) from the score pass's ends, and sw at -1/2 (outside
+    # the engine's gaps) from each pair's terminal cell
+    erng = np.random.default_rng(10)
+    e_lens = [0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255,
+              256, 257, 300]
+    for ql in (1, 15, 16, 17, 255, 256, 257, 511, 512, 513):
+        e_q = erng.integers(0, 20, ql).astype(np.uint8)
+        e_seqs = []
+        for n in e_lens:
+            t_ = erng.integers(0, 20, n).astype(np.uint8)
+            k = min(n // 2, ql)
+            t_[n // 4:n // 4 + k] = e_q[:k]
+            e_seqs.append(db.alphabet.decode(t_.tobytes()))
+        e_db = pt.Database(e_seqs)
+        e_tg = [e_db.get_encoded(i) for i in range(len(e_db))]
+        cases = [("sw", (GO, GE))]
+        if ql in (17, 257, 513):
+            cases += [("nw", (GO, GE)), ("sw", (-1, 2))]
+        for algo, gaps in cases:
+            if gaps[0] < 0:
+                e_qe = np.full(len(e_lens), ql - 1)
+                e_te = np.array(e_lens) - 1
+            else:
+                with e_db.lock.read:
+                    _, e_qe, e_te = engine.search_scores(
+                        e_db, 0, len(e_db), e_q, S, *gaps, algo, device=dev)
+            tb_compare(f"edge Q={ql} {algo} {gaps[0]}/{gaps[1]}", e_q, S,
+                       e_tg, list(range(len(e_tg))), algo, gaps, e_qe, e_te)
     emit({"phase": "traceback_vs_plain", "batches_per_query": len(tb_batches),
           "batch_sizes": {k: [tb_cases[f"{k} sw 3/1"][x] for x in
                               ("pairs", "B", "T_pad")] for k in tb_picks},
@@ -2079,29 +2119,33 @@ def main():
              for n in long_q}, **card})
 
     # T1 and T2 over the batches of one full-mode query (phase 5f's: 256 aa,
-    # sw, gaps 3/1), each launch timed alone; then the parts of
-    # align(mode="full"): the score pass (K1), the batched traceback (host
-    # batching and refinement around T1 and T2) and the result building
+    # sw, gaps 3/1), each launch timed alone, three launches queued behind a
+    # sleep on the card so that the host's time to issue them stays out;
+    # then the parts of align(mode="full"): the score pass (K1), the batched
+    # traceback (host batching and refinement around T1 and T2) and the
+    # result building
     t0 = time.perf_counter()
     prof0 = torch.from_numpy(np.ascontiguousarray(
         S[enc_q[0].astype(np.int64)])).to(dev)
     qe0, te0 = tb_ends["sw", (GO, GE)]
-    t1_ms, t2_ms, t_cells, t_bytes, w_ops = [], [], 0, 0, 0
-    for batch in tb_batches:
-        tgt, tlen = traceback.pad_batch(tb_targets, batch)
-        qes, tes = traceback.walk_ends(tb_targets, batch, tgt.shape[0],
-                                       len(enc_q[0]), qe0, te0, "sw")
-        a1 = (prof0, torch.from_numpy(tgt).to(dev), GO, GE, "sw",
-              torch.from_numpy(tlen).to(dev))
-        t1_ms.append(time_launches(traceback._dir_matrix_batch, a1, 3))
-        dirs = traceback._dir_matrix_batch(*a1)
-        a2 = (dirs, torch.from_numpy(qes).to(dev),
-              torch.from_numpy(tes).to(dev), "sw")
-        t2_ms.append(time_launches(traceback._walk_batch_device, a2, 3))
-        w_ops += int((traceback._walk_batch_device(*a2)[0] != 255).sum())
-        t_cells += int(tlen.sum()) * len(enc_q[0])
-        t_bytes += int(tlen.sum()) * len(enc_q[0]) + 4 * tgt.size
-    del dirs
+
+    def time_queued(fn, args, n=3, hold_ms=5.0):
+        """Device ms per launch of ``n`` launches queued behind a sleep of
+        ``hold_ms``; None when the host took longer to queue them."""
+        fn(*args)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_ms * 1e-3 * max_sm_mhz * 1e6))
+        t1 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            fn(*args)
+        stop.record()
+        queued = (time.perf_counter() - t1) * 1e3
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / n if queued < hold_ms else None
+
     def t1_bound(cells, n_bytes):
         ops = OPS_PER_CELL_DIRS * cells
         ops_ms = ops / (N_SMS * INT32_LANES_PER_SM * max_sm_mhz * 1e6) * 1e3
@@ -2112,6 +2156,47 @@ def main():
     def t2_bound(steps):
         return {"bound_ms": steps * 32 / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes"}
+
+    t1_ms, t2_ms, t_cells, t_bytes, w_ops = [], [], 0, 0, 0
+    tb_rows = []  # per batch
+    for batch in tb_batches:
+        tgt, tlen = traceback.pad_batch(tb_targets, batch)
+        qes, tes = traceback.walk_ends(tb_targets, batch, tgt.shape[0],
+                                       len(enc_q[0]), qe0, te0, "sw")
+        a1 = (prof0, torch.from_numpy(tgt).to(dev), GO, GE, "sw",
+              torch.from_numpy(tlen).to(dev))
+        t1_ms.append(time_queued(traceback._dir_matrix_batch, a1))
+        dirs = traceback._dir_matrix_batch(*a1)
+        a2 = (dirs, torch.from_numpy(qes).to(dev),
+              torch.from_numpy(tes).to(dev), "sw")
+        t2_ms.append(time_queued(traceback._walk_batch_device, a2))
+        ops = traceback._walk_batch_device(*a2)[0] != 255  # (LMAX, B)
+        n_ops = int(ops.sum())
+        # a walk's steps: up to its last op (a final stop step emits none)
+        last = ops.shape[0] - ops.flip(0).int().argmax(0)
+        longest = int((last * ops.any(0)).max())
+        cells = int(tlen.sum()) * len(enc_q[0])
+        n_bytes = cells + 4 * tgt.size
+        w_ops += n_ops
+        t_cells += cells
+        t_bytes += n_bytes
+        tb_rows.append({
+            "B": int(tgt.shape[0]), "T_pad": int(tgt.shape[1]),
+            "pairs": len(batch), "t1_ms": t1_ms[-1], "t2_ms": t2_ms[-1],
+            "t1_bound_ms": t1_bound(cells, n_bytes)["bound_ms"],
+            "t2_bound_ms": t2_bound(n_ops)["bound_ms"],
+            "walk_ops": n_ops, "longest_walk_steps": longest,
+            "t2_cycles_per_step": (t2_ms[-1] * 1e-3 * max_sm_mhz * 1e6
+                                   / longest if t2_ms[-1] and longest
+                                   else None)})
+    del dirs
+    if None in t1_ms or None in t2_ms:
+        fail("the host fell behind the queued T1/T2 launches")
+    emit({"phase": "traceback_batches", "batches": tb_rows,
+          "t1_threads_per_pair": traceback.dirs_group(len(enc_q[0])),
+          "t1_rows_per_thread": traceback.DIRS_R,
+          "t2_tile_rows_columns": list(traceback.WALK_TILE),
+          "clock_mhz": max_sm_mhz, **card})
 
     parts = {"score_pass": 0.0, "traceback": 0.0}
     real_scores, real_batch = engine.search_scores, \

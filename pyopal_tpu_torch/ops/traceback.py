@@ -9,17 +9,22 @@ requested alignment is reconstructed in padded batches of pairs:
   the query, gap in the target, local stop; ties in that order) and the
   gap-open bits of ``E`` and ``F`` (bits 2 and 3; a tie opens).  On
   CUDA tensors it launches T1 (``csrc/traceback_dirs.cu``), which
-  replaces the reference's jitted column scan (l.53); its plain version
-  `dir_matrix_reference` is that scan on tensors, with an exact integer
-  profile gather (the reference's one-hot f32 lookup and its
-  ``int_lookup`` switch, l.89-97, are a TPU choice that gives the same
-  bytes).
+  replaces the reference's jitted column scan (l.53): a group of
+  `dirs_group` threads a pair, `DIRS_R` query rows a thread, along
+  anti-diagonals, writing ``(B, T_pad, Qs)`` bytes (a column's rows
+  contiguous) that the wrapper presents as the ``(B, Q, T_pad)`` view.
+  Its plain version `dir_matrix_reference` is that scan on tensors, with
+  an exact integer profile gather (the reference's one-hot f32 lookup and
+  its ``int_lookup`` switch, l.89-97, are a TPU choice that gives the
+  same bytes).
 - `_walk_batch_device` follows the directions from each pair's end cell
   and emits one op per step, end to start, into a ``(steps, B)`` buffer
   (255 = none).  On CUDA tensors it launches T2
   (``csrc/traceback_walk.cu``), which replaces the reference's
-  ``while_loop`` (l.197); its plain version `walk_reference` is that
-  loop on tensors.
+  ``while_loop`` (l.197): a warp a pair walking `WALK_TILE` tiles of the
+  direction bytes in shared memory, its ops contiguous per pair
+  (``(B, LMAX_s)``, presented as the ``(LMAX, B)`` view).  Its plain
+  version `walk_reference` is that loop on tensors.
 
 As in `pyopal_tpu_torch.ops.ragged`, a wrapper launches its kernel for
 CUDA tensors (counted in `launches`) and takes the plain version for CPU
@@ -56,6 +61,13 @@ F_OPEN = 8  # bit 3: F came from H (gap open)
 #: pairs with more DP cells than this go to the scalar fallback
 MAX_DEVICE_CELLS = 64 * 1024 * 1024
 
+#: T1's query rows per thread, and its threads per pair at most (one
+#: pass covers ``DIRS_R * DIRS_MAX_G`` = 256 rows)
+DIRS_R = 8
+DIRS_MAX_G = 32
+#: T2's tile of direction bytes in shared memory: (rows, columns)
+WALK_TILE = (64, 64)
+
 #: kernel launches made by the wrappers on CUDA tensors, by kernel (T1
 #: `_dir_matrix_batch`, T2 `_walk_batch_device`)
 launches = {"traceback_dirs": 0, "traceback_walk": 0}
@@ -65,6 +77,20 @@ plain_calls = dict.fromkeys(launches, 0)
 
 def _round_up_128(n: int) -> int:
     return ((n + 127) // 128) * 128
+
+
+def _round_up_16(n: int) -> int:
+    return ((n + 15) // 16) * 16
+
+
+def dirs_group(Q: int, R: int = DIRS_R, max_g: int = DIRS_MAX_G) -> int:
+    """T1's threads per pair for a query of ``Q`` rows: the least power
+    of two, at least 2, whose ``G * R`` rows cover ``min(Q, max_g * R)``;
+    longer queries take passes of ``max_g * R`` rows."""
+    g = 2
+    while g < max_g and g * R < Q:
+        g *= 2
+    return g
 
 
 def _i32(x: int) -> int:
@@ -94,8 +120,12 @@ def _dir_matrix_batch(prof_t, targets, go, ge, algorithm, lengths):
 
     Returns ``(B, Q, T_pad) uint8``, byte ``[b, i - 1, j - 1]`` for the
     DP cell ``(i, j)``, equal to the reference's on every column below
-    the pair's length.  One T1 launch on CUDA tensors (none for an empty
-    batch); there ``T_pad`` must be a multiple of 4.
+    the pair's length.  On CUDA tensors it is one T1 launch (none for an
+    empty batch) into a ``torch.empty`` buffer of ``(B, T_pad, Qs)``
+    bytes, ``Qs = Q`` rounded up to 16, every byte of which T1 writes; the
+    result is its transposed view (strides ``(T_pad * Qs, 1, Qs)``), which
+    `_walk_batch_device` walks as it is.  On the CPU the result is
+    contiguous.
     """
     dev = prof_t.device
     _check("prof_t", prof_t, torch.int32, 2, dev)
@@ -114,24 +144,42 @@ def _dir_matrix_batch(prof_t, targets, go, ge, algorithm, lengths):
         raise ValueError(f"unsupported device {dev}")
     Q, A = prof_t.shape
     B, T_pad = targets.shape
-    if T_pad % 4:
-        raise ValueError(f"T_pad must be a multiple of 4, got {T_pad}")
-    dirs = torch.zeros((B, Q, T_pad), dtype=torch.uint8, device=dev)
     if B == 0 or Q == 0 or T_pad == 0:
-        return dirs
+        return torch.zeros((B, Q, T_pad), dtype=torch.uint8, device=dev)
     from . import _cuda
 
-    # the bottom row's H and F of each 32-row strip, for the next strip
+    Qs = _round_up_16(Q)
+    G = dirs_group(Q)
+    store = torch.empty((B, T_pad, Qs), dtype=torch.uint8, device=dev)
+    # H and F of each pass's last row at every column, for the next pass
     rowbuf = (
         torch.empty((B, 2, T_pad), dtype=torch.int32, device=dev)
-        if Q > 32 else 0
+        if Q > G * DIRS_R else 0
     )
     _cuda.launch(
-        "traceback_dirs", prof_t, targets, lengths, dirs, rowbuf,
-        B, Q, A, T_pad, int(go), int(ge), ALGO_CODES[algorithm],
+        "traceback_dirs", prof_t, targets, lengths, store, rowbuf,
+        B, Q, Qs, A, T_pad, G, int(go), int(ge), ALGO_CODES[algorithm],
     )
     launches["traceback_dirs"] += 1
-    return dirs
+    return store.transpose(1, 2)[:, :Q]
+
+
+def dirs_storage(dirs):
+    """T1's ``(B, T_pad, Qs)`` bytes behind a ``(B, Qd, T_pad)`` tensor of
+    direction bytes, and ``Qs``: the tensor's own storage when it is T1's
+    view, else a transposed copy with ``Qs = Qd`` rounded up to 16 (rows
+    past ``Qd`` zero)."""
+    B, Qd, T_pad = dirs.shape
+    Qs = dirs.stride(2)
+    if (dirs.stride(1) == 1 and Qs % 16 == 0 and Qs >= Qd
+            and dirs.stride(0) == T_pad * Qs
+            and dirs.storage_offset() == 0):
+        store = torch.as_strided(dirs, (B, T_pad, Qs), (T_pad * Qs, Qs, 1))
+        return store, Qs
+    Qs = _round_up_16(Qd)
+    store = torch.zeros((B, T_pad, Qs), dtype=torch.uint8, device=dirs.device)
+    store[:, :, :Qd] = dirs.transpose(1, 2)
+    return store, Qs
 
 
 def dir_matrix_reference(prof_t, targets, go, ge, algorithm, lengths):
@@ -260,18 +308,26 @@ def _walk_batch_device(dirs, qes, tes, algorithm):
     """Batched walk over resident direction matrices (T2).
 
     Arguments:
-        dirs: ``(B, Qd, T_pad)`` uint8 direction bytes (`_dir_matrix_batch`).
+        dirs: ``(B, Qd, T_pad)`` uint8 direction bytes (`_dir_matrix_batch`'s
+            result: on CUDA tensors T1's transposed view, walked as it is;
+            any other layout is first copied into it, `dirs_storage`).
         qes / tes: ``(B,)`` int32 end cells (0-based; ``(-1, -1)`` for a
             pair the walk does not serve, which finishes at once).
 
     Returns ``(buf, i, j)``: ``buf[s, b]`` (uint8, ``(LMAX, B)`` with
     ``LMAX = 2 (Qd + T_pad) + 4``) is pair ``b``'s op at step ``s`` (255 =
     none; ops are emitted end to start), and ``(i, j)`` (int32) are the
-    1-based start cells.  One T2 launch on CUDA tensors (none for an
-    empty batch).
+    1-based start cells.  On CUDA tensors it is one T2 launch (none for
+    an empty batch) into a ``torch.empty`` buffer of ``(B, LMAX_s)``
+    bytes, ``LMAX_s = LMAX`` rounded up to 16, every byte of which T2
+    writes; ``buf`` is its transposed view.  On the CPU ``buf`` is
+    contiguous.
     """
     dev = dirs.device
-    _check("dirs", dirs, torch.uint8, 3, dev)
+    if dirs.dtype != torch.uint8:
+        raise TypeError(f"dirs must be {torch.uint8}, got {dirs.dtype}")
+    if dirs.ndim != 3:
+        raise ValueError("dirs must have 3 dimensions")
     _check("qes", qes, torch.int32, 1, dev)
     _check("tes", tes, torch.int32, 1, dev)
     B = dirs.shape[0]
@@ -286,16 +342,19 @@ def _walk_batch_device(dirs, qes, tes, algorithm):
         raise ValueError(f"unsupported device {dev}")
     _, Qd, T_pad = dirs.shape
     lmax = 2 * (Qd + T_pad) + 4
-    buf = torch.full((lmax, B), 255, dtype=torch.uint8, device=dev)
+    lmax_s = _round_up_16(lmax)
+    store = torch.empty((B, lmax_s), dtype=torch.uint8, device=dev)
     i_out = torch.empty(B, dtype=torch.int32, device=dev)
     j_out = torch.empty(B, dtype=torch.int32, device=dev)
+    buf = store.t()[:lmax]
     if B == 0:
         return buf, i_out, j_out
     from . import _cuda
 
+    d_store, Qs = dirs_storage(dirs)
     _cuda.launch(
-        "traceback_walk", dirs, qes, tes, buf, i_out, j_out,
-        B, Qd, T_pad, lmax, ALGO_CODES[algorithm],
+        "traceback_walk", d_store, qes, tes, store, i_out, j_out,
+        B, Qd, Qs, T_pad, lmax, lmax_s, ALGO_CODES[algorithm],
     )
     launches["traceback_walk"] += 1
     return buf, i_out, j_out

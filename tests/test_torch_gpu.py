@@ -606,6 +606,50 @@ def test_traceback_walk_kernel_matches_plain(dev, algo, gaps):
     assert traceback.launches["traceback_walk"] == before + 1
 
 
+@pytest.mark.parametrize("Q", [1, 15, 16, 17, 255, 256, 257, 511, 512, 513])
+def test_traceback_kernels_at_walk_edges(dev, Q):
+    """T1 and T2 against their plain versions where the new walks change
+    hands: queries on either side of a thread's 8 rows, of T1's 256-row
+    pass and of two passes; targets on either side of T2's 64-column
+    tile and of T1's symbol tiles, padding pairs; every algorithm at 3/1
+    and sw at -1/2.  T2 walks T1's own buffer (its layout as it is) and
+    the plain bytes (copied into it), from each pair's terminal cell or a
+    random one."""
+    rng = np.random.default_rng(Q)
+    q = rng.integers(0, 20, Q).astype(np.uint8)
+    lens = np.array([0, 1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 0],
+                    np.int32)
+    T_pad = 256
+    tgt = np.zeros((16, T_pad), np.int32)
+    for b, n in enumerate(lens):
+        tgt[b, :n] = rng.integers(0, 20, n)
+    tgt[8, 3:3 + min(Q, 120)] = q[:120]
+    lens = np.concatenate([lens, [T_pad, 200, 0, 0]]).astype(np.int32)
+    tgt[12, :T_pad] = np.resize(q, T_pad)
+    tgt[13, :200] = rng.integers(0, 20, 200)
+    prof = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(S, np.int32)[q.astype(np.int64)])).to(dev)
+    tgt_d = torch.from_numpy(tgt).to(dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    for algo, gaps in [(a, (3, 1)) for a in ("nw", "hw", "ov", "sw")] + [
+            ("sw", (-1, 2))]:
+        got = traceback._dir_matrix_batch(prof, tgt_d, *gaps, algo, lens_d)
+        want = traceback.dir_matrix_reference(prof, tgt_d, *gaps, algo,
+                                              lens_d)
+        _equal([got], [want])
+        # ends: the terminal cell, a random cell, (-1, -1) for padding
+        qes = np.where(lens > 0, Q - 1, -1).astype(np.int32)
+        tes = (lens - 1).astype(np.int32)
+        some = (np.arange(len(lens)) % 2 == 1) & (lens > 0)
+        qes[some] = rng.integers(0, Q, int(some.sum()))
+        tes[some] = rng.integers(0, lens[some])
+        ends = (torch.from_numpy(qes).to(dev), torch.from_numpy(tes).to(dev),
+                algo)
+        plain = traceback.walk_reference(want, *ends)
+        _equal(traceback._walk_batch_device(got, *ends), plain)
+        _equal(traceback._walk_batch_device(want, *ends), plain)
+
+
 def test_full_mode_on_the_card_matches_cpu(dev):
     """``align(mode="full")`` and ``align_top_k`` on the card (K1, T1,
     T2) against the CPU port (the plain versions), every algorithm."""

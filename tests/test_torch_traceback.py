@@ -2,8 +2,11 @@
 
 `pyopal_tpu_torch.ops.traceback` holds T1 (the direction pass) and T2
 (the walk); on the CPU their wrappers run the plain versions, and the
-tests also run `dirs_warp_reference` and `walk_thread_reference`, defined
-here: CPU emulations of T1 and T2 as their CUDA kernels compute them.
+tests also run `dirs_wave_reference` and `walk_tiled_reference`, defined
+here: CPU emulations of T1 and T2 as their CUDA kernels compute them (T1's
+groups of threads, rows a thread, passes, pass buffer and store layout;
+T2's tiles and the state carried across their edges), at the kernels'
+own sizes and at small ones that make the same edges frequent.
 Every comparison is exact (integers, bytes and CIGAR strings; tolerance
 0), on inputs made from a numpy seed: the reference's jitted
 `_dir_matrix_batch` and `_walk_batch_device`, its
@@ -30,115 +33,211 @@ GAPS = [(3, 1), (1, 3), (0, 0)]
 
 
 def _wrap32(x):
-    """An int64 array wrapped to int32, as the kernel's int32 math."""
-    return ((np.asarray(x, np.int64) + 2**31) % 2**32 - 2**31).astype(
-        np.int32)
+    """An int64 array wrapped to int32 values, as the kernels' int32 math
+    (kept in int64)."""
+    return (np.asarray(x, np.int64) + 2**31) % 2**32 - 2**31
 
 
-def dirs_warp_reference(prof_t, targets, go, ge, algorithm, lengths):
-    """T1 as its kernel computes it, on the CPU: one warp per pair, 32
-    rows a strip, lane ``r`` at step ``t`` on column ``t - r + 1``, the
-    row above by a shuffle (lane 0: the strip above's bottom row from the
-    buffer), the sequential F, the zero-filled columns past each length.
-    Same arguments and result as `tb._dir_matrix_batch`.
+#: what the emulations put in their buffers first: every byte of each
+#: buffer must be overwritten (direction bytes are below 16)
+UNWRITTEN = 0xAA
+
+
+def dirs_wave_reference(prof_t, targets, go, ge, algorithm, lengths,
+                        R=tb.DIRS_R, max_g=tb.DIRS_MAX_G):
+    """T1 as its kernel computes it, on the CPU, step by step.
+
+    A group of ``G = tb.dirs_group(Q, R, max_g)`` threads a pair, thread
+    ``t`` owning rows ``[base + t R, base + (t + 1) R)`` of a pass of
+    ``G R`` rows; at step ``s`` it works on column ``s - t`` with the row
+    above handed down from thread ``t - 1`` (thread 0: row 0's closed form
+    in the first pass, else the pass buffer that thread ``G - 1`` of the
+    pass before wrote), the symbol of its next column from thread ``t -
+    1`` (thread 0: from the target), the profile entries of that symbol
+    looked up a step ahead, the sequential F and the kernel's predicates
+    (an argmax's ``a >= b``).  A thread keeps the ``R`` bytes of each
+    column in a ring of ``G`` slots, and the group stores column ``s - G +
+    1`` together at step ``s``, into ``(B, T_pad, Qs)`` bytes (``Qs = Q`` rounded up to ``2 R``; rows
+    past Q zero), zero-fills the
+    columns past each length, asserts that every byte was written, and
+    returns the ``(B, Q, T_pad)`` view, as `tb._dir_matrix_batch` does on
+    the card.
     """
     spec = ALGORITHMS[algorithm]
+    clamp = spec.clamp_zero
     prof = prof_t.cpu().numpy().astype(np.int64)
-    tg = targets.cpu().numpy()
-    Q, _ = prof.shape
+    tg = targets.cpu().numpy().astype(np.int64)
+    Q, A = prof.shape
     B, T_pad = tg.shape
+    n = np.clip(lengths.cpu().numpy().astype(np.int64), 0, T_pad)
+    # Q rounded up to two threads' rows: 16 at the kernel's R = 8
+    Qs = -(-Q // (2 * R)) * 2 * R
+    store = np.full((B, T_pad, Qs), UNWRITTEN, np.uint8)
     go, ge = tb._i32(go), tb._i32(ge)
-    out = np.zeros((B, Q, T_pad), np.uint8)
-    lane = np.arange(32)
+    NEG = int(tb.NEG)
+    G = tb.dirs_group(Q, R, max_g)
+    GR = G * R
+    n_pass = -(-Q // GR)
+    assert G * R >= min(Q, max_g * R) and (n_pass == 1 or G == max_g)
+    for b in range(B):
+        store[b, n[b]:] = 0
+    t = np.arange(G)
+    bh = np.zeros((B, T_pad), np.int64)  # the pass buffer: H and F
+    bf = np.zeros((B, T_pad), np.int64)
+    nsteps = int(n.max()) + G - 1 if n.max() > 0 else 0
 
     def gap_run(k):  # -(go + k * ge): the boundary of row or column k + 1
         return _wrap32(-(go + np.asarray(k, np.int64) * ge))
 
-    for b in range(B):
-        n = min(max(int(lengths[b]), 0), T_pad)
-        if n == 0 or Q == 0:
-            continue
-        bh = np.zeros(T_pad, np.int32)
-        bf = np.zeros(T_pad, np.int32)
-        n_strips = -(-Q // 32)
-        for s in range(n_strips):
-            i = s * 32 + lane + 1
-            row_ok = i <= Q
-            prow = prof[np.minimum(i, Q) - 1]  # (32, A)
-            hl = gap_run(i - 1) if spec.penalize_first_col else \
-                np.zeros(32, np.int32)
-            el = np.full(32, tb.NEG, np.int32)
-            hc, fc = hl.copy(), el.copy()
-            saved = np.zeros(32, np.int32)
-            if spec.penalize_first_col and s > 0:
-                saved[0] = gap_run(s * 32 - 1)
-            for t in range(n + 31):
-                j = t - lane + 1
-                up_h = np.concatenate([hc[:1], hc[:-1]])  # shfl_up
-                up_f = np.concatenate([fc[:1], fc[:-1]])
-                active = (j >= 1) & (j <= n)
-                if active[0]:
-                    if s == 0:
-                        up_h[0] = (gap_run(j[0] - 1)
-                                   if spec.penalize_first_row else 0)
-                        up_f[0] = tb.NEG
-                    else:
-                        up_h[0], up_f[0] = bh[j[0] - 1], bf[j[0] - 1]
-                diag_h, saved = saved, up_h
-                m = active & row_ok
-                if not m.any():
-                    continue
-                hg, eg = _wrap32(hl.astype(np.int64) - go), \
-                    _wrap32(el.astype(np.int64) - ge)
-                e = np.maximum(hg, eg)
-                fg, ff = _wrap32(up_h.astype(np.int64) - go), \
-                    _wrap32(up_f.astype(np.int64) - ge)
-                f = np.maximum(fg, ff)
-                sym = tg[b, np.clip(j - 1, 0, T_pad - 1)]
-                dg = _wrap32(diag_h.astype(np.int64) + prow[lane, sym])
-                tmp = np.maximum(dg, e)
-                if spec.clamp_zero:
-                    tmp = np.maximum(tmp, 0)
-                h = np.maximum(tmp, f)
-                code = np.where(h == dg, tb.DIR_DIAG,
-                                np.where(h == e, tb.DIR_E, tb.DIR_F))
-                if spec.clamp_zero:
-                    code = np.where(h == 0, tb.DIR_STOP, code)
-                byte = (code + (hg >= eg) * tb.E_OPEN
-                        + (fg >= ff) * tb.F_OPEN)
-                out[b, i[m] - 1, j[m] - 1] = byte[m]
-                hl = np.where(m, h, hl)
-                el = np.where(m, e, el)
-                hc = np.where(m, h, hc)
-                fc = np.where(m, f, fc)
-                if m[31] and s < n_strips - 1:
-                    bh[j[31] - 1], bf[j[31] - 1] = h[31], f[31]
-    return torch.from_numpy(out)
+    for p in range(n_pass):
+        base = p * GR
+        # the pass's profile rows (0 past the query), [symbol][row]
+        P = np.zeros((A, GR), np.int64)
+        k = min(GR, Q - base)
+        P[:, :k] = prof[base:base + k].T
+        q0 = base + t * R
+        nv = np.clip(Q - q0, 0, R)
+        rows = q0[:, None] + np.arange(R)  # (G, R)
+        Gr = np.broadcast_to(_wrap32(
+            (gap_run(rows) if spec.penalize_first_col else 0) - go),
+            (B, G, R)).copy()
+        E = np.full((B, G, R), NEG, np.int64)
+        gd0 = np.where((q0 > 0) & spec.penalize_first_col, gap_run(q0 - 1), 0)
+        gdiag = np.broadcast_to(_wrap32(gd0 - go), (B, G)).copy()
+        out_h = np.zeros((B, G), np.int64)
+        out_f = np.full((B, G), NEG, np.int64)
+        use_sym = np.repeat(tg[:, :1], G, axis=1)  # thread 0's column 0
+        ring = np.zeros((B, G, G, R), np.int64)  # [column % G][thread]
+        pv_next = P[use_sym[..., None], t[:, None] * R + np.arange(R)]
+        for s in range(nsteps):
+            c = s + 1
+            nsym = np.concatenate([tg[:, c:c + 1] if c < T_pad else
+                                   np.zeros((B, 1), np.int64),
+                                   use_sym[:, :-1]], axis=1)
+            if p == 0:
+                top_h = np.full(B, gap_run(s) if spec.penalize_first_row
+                                else 0)
+                top_f = np.full(B, NEG)
+            elif s < T_pad:
+                top_h, top_f = bh[:, s], bf[:, s]
+            else:  # past the buffer: thread 0 is idle
+                top_h = top_f = np.zeros(B, np.int64)
+            hu = np.concatenate([top_h[:, None], out_h[:, :-1]], axis=1)
+            fu = np.concatenate([top_f[:, None], out_f[:, :-1]], axis=1)
+            pv = pv_next
+            pv_next = P[nsym[..., None], t[:, None] * R + np.arange(R)]
+            use_sym = nsym
+            j = s - t
+            act = (j >= 0) & (j < n[:, None])  # (B, G)
+            gd = gdiag
+            gu = _wrap32(hu - go)
+            gdiag = np.where(act, gu, gdiag)
+            f = fu
+            code = np.zeros((B, G, R), np.int64)
+            for r in range(R):
+                ee = _wrap32(E[..., r] - ge)
+                eo = Gr[..., r] >= ee
+                e = np.maximum(Gr[..., r], ee)
+                dg = _wrap32(gd + go + pv[..., r])
+                p1 = dg >= e
+                m1 = np.maximum(dg, e)
+                ffe = _wrap32(f - ge)
+                fo = gu >= ffe
+                f = np.maximum(_wrap32(hu - go), ffe)
+                h = np.maximum(m1, f)
+                p2 = m1 >= f
+                if clamp:
+                    h = np.maximum(h, 0)
+                cr = np.where(p2, np.where(p1, 0, 1), 2)
+                if clamp:
+                    cr = np.where(h == 0, 3, cr)
+                code[..., r] = cr + eo * 4 + fo * 8
+                gd = Gr[..., r].copy()
+                hu = h
+                gu = _wrap32(h - go)
+                Gr[..., r] = np.where(act, gu, Gr[..., r])
+                E[..., r] = np.where(act, e, E[..., r])
+            code[:, nv[:, None] <= np.arange(R)] = 0  # rows past the query
+            # into the thread's ring slot of column j
+            bb, gg = np.nonzero(act)
+            ring[bb, j[gg] % G, gg] = code[bb, gg]
+            if p < n_pass - 1:  # thread G - 1 writes the pass buffer
+                last = act[:, G - 1]
+                bh[last, j[G - 1]] = hu[last, G - 1]
+                bf[last, j[G - 1]] = f[last, G - 1]
+            out_h = np.where(act, hu, out_h)
+            out_f = np.where(act, f, out_f)
+            # the group stores column s - G + 1 from its ring slots
+            col = s - (G - 1)
+            bs = np.nonzero((col >= 0) & (col < n))[0][:, None, None]
+            ts = np.nonzero(q0 < Qs)[0]
+            store[bs, col, rows[ts]] = ring[bs[..., 0], col % G, ts]
+    assert not (store == UNWRITTEN).any(), "T1 leaves bytes unwritten"
+    return torch.from_numpy(store).transpose(1, 2)[:, :Q]
 
 
-def walk_thread_reference(dirs, qes, tes, algorithm):
+def walk_tiled_reference(dirs, qes, tes, algorithm, tile=tb.WALK_TILE,
+                         stats=None):
     """T2 as its kernel computes it, on the CPU: each pair on its own,
-    stepping until it is done or ``LMAX`` steps have run, into a buffer
-    pre-filled with 255.  Same arguments and result as
-    `tb._walk_batch_device`.
+    stepping until it is done or ``LMAX`` steps have run, reading its
+    bytes from a tile of ``tile = (rows, columns)`` bytes of T1's ``(B,
+    T_pad, Qs)`` layout (`tb.dirs_storage`), loaded where the path
+    leaves the tile before (rows from a multiple of 16 with the cell in
+    the last 16, the cell in the last column), and from the reference's
+    clipped flat index where a gap state stands on row or column 0.  Its
+    ops (3 for none, 255 once stored) go out 16 at a time into ``(B,
+    LMAX_s)`` bytes with a tail of 255s
+    (every byte asserted written); returns the ``(LMAX, B)`` view, ``i``
+    and ``j``.  ``stats`` (a dict) counts the tiles the paths leave by
+    their top row (``row``), left column (``col``) or both (``corner``),
+    E and F runs that cross a tile's edge (``e_run``, ``f_run``) and the
+    steps along row or column 0 (``boundary``).
     """
     spec = ALGORITHMS[algorithm]
-    d_all = dirs.cpu().numpy()
-    B, Qd, T_pad = d_all.shape
+    TR, TC = tile
+    store, Qs = tb.dirs_storage(dirs)
+    st_all = store.cpu().numpy()
+    B, Qd, T_pad = dirs.shape
     lmax = 2 * (Qd + T_pad) + 4
+    lmax_s = tb._round_up_16(lmax)
     cells = Qd * T_pad
-    buf = np.full((lmax, B), 255, np.uint8)
+    out = np.full((B, lmax_s), UNWRITTEN, np.uint8)
     i_out = np.zeros(B, np.int32)
     j_out = np.zeros(B, np.int32)
+    stats = {} if stats is None else stats
+    for key in ("row", "col", "corner", "e_run", "f_run", "boundary"):
+        stats.setdefault(key, 0)
     for b in range(B):
-        flat = d_all[b].reshape(-1)
         i, j = int(qes[b]) + 1, int(tes[b]) + 1
         st = 0
         done = i == 0 and j == 0
+        r0 = c0 = None
+        ops = []  # the ops not yet stored
         s = 0
         while s < lmax and not done:
-            idx = min(max((i - 1) * T_pad + (j - 1), 0), cells - 1)
-            d = int(flat[idx]) if cells > 0 else 0
+            d = 0
+            if st != 0 or (i != 0 and j != 0):
+                if 1 <= i <= Qd and 1 <= j <= T_pad:
+                    r, c = i - 1, j - 1
+                    if r0 is None or r < r0 or c < c0:
+                        if r0 is not None:
+                            kind = ("corner" if r < r0 and c < c0 else
+                                    "row" if r < r0 else "col")
+                            stats[kind] += 1
+                            if st == 1:
+                                stats["e_run"] += 1
+                            if st == 2:
+                                stats["f_run"] += 1
+                        r0 = max(0, (r & ~15) + 16 - TR)
+                        c0 = max(0, c - TC + 1)
+                        t_ = np.zeros((TC, TR), np.uint8)
+                        part = st_all[b, c0:c0 + TC, r0:r0 + TR]
+                        t_[:part.shape[0], :part.shape[1]] = part
+                    d = int(t_[c - c0, r - r0])
+                elif cells > 0:
+                    idx = min(max((i - 1) * T_pad + (j - 1), 0), cells - 1)
+                    rr, cc = divmod(idx, T_pad)
+                    d = int(st_all[b, cc, rr])
             code = d & 3
             in_h, in_e, in_f = st == 0, st == 1, st == 2
             i0, j0 = i == 0, j == 0
@@ -152,14 +251,15 @@ def walk_thread_reference(dirs, qes, tes, algorithm):
                             and code == tb.DIR_STOP)
             e_open = bool(d & tb.E_OPEN) if i > 0 else True
             f_open = bool(d & tb.F_OPEN) if j > 0 else True
-            emit = 255
+            emit = 3  # none: 255 once stored
             if h_ins or in_e:
                 emit = OP_INS
             if h_del or in_f:
                 emit = OP_DEL
-            if h_inner and code == tb.DIR_DIAG:
-                emit = OP_MATCH
             diag = h_inner and code == tb.DIR_DIAG
+            if diag:
+                emit = OP_MATCH
+            stats["boundary"] += h_ins or h_del
             i2 = i - int(h_del or diag or in_f)
             j2 = j - int(h_ins or diag or in_e)
             done = h_stop_i0 or h_stop_j0 or h_stop_clamp or (
@@ -172,11 +272,20 @@ def walk_thread_reference(dirs, qes, tes, algorithm):
                 st = 0 if e_open else 1
             elif in_f:
                 st = 0 if f_open else 2
-            buf[s, b] = emit
             i, j = i2, j2
+            ops.append(emit)
+            if len(ops) == 16:
+                out[b, s - 15:s + 1] = [255 if o == 3 else o for o in ops]
+                ops = []
             s += 1
+        if ops:  # the last partial 16, completed with 255
+            out[b, s - len(ops):s - len(ops) + 16] = [
+                255 if o == 3 else o for o in ops] + [255] * (16 - len(ops))
+            s += 16 - len(ops)
+        out[b, s:] = 255
         i_out[b], j_out[b] = i, j
-    return (torch.from_numpy(buf), torch.from_numpy(i_out),
+    assert not (out == UNWRITTEN).any(), "T2 leaves bytes unwritten"
+    return (torch.from_numpy(out).t()[:lmax], torch.from_numpy(i_out),
             torch.from_numpy(j_out))
 
 
@@ -190,7 +299,8 @@ def _batch(seed, Q, B=8, T_pad=128, alphabet=24, matrix=S):
     tgt = np.zeros((B, T_pad), np.int32)
     for b in range(B):
         tgt[b, : lens[b]] = rng.integers(0, alphabet, lens[b])
-    tgt[0, 5:25] = q[:20]  # a high-scoring stretch
+    k = min(Q, 20)
+    tgt[0, 5:5 + k] = q[:k]  # a high-scoring stretch
     prof = np.ascontiguousarray(
         np.asarray(matrix, np.int32)[q.astype(np.int64)])
     return q, prof, tgt, lens
@@ -257,21 +367,38 @@ def test_dir_matrix_plain_other_matrices(case):
         np.testing.assert_array_equal(got.numpy(), want, err_msg=algo)
 
 
-@pytest.mark.parametrize("gaps", [(3, 1), (1, 3)])
+#: gap pairs of the emulation tests: the default, ge > go, zero gaps and
+#: a negative gap open
+EMU_GAPS = [(3, 1), (1, 3), (0, 0), (-1, 2)]
+#: T1's emulation at a small walk (R = 2 rows a thread, G <= 4: passes of
+#: 8 rows) and at the kernel's (R = 8, G <= 32: passes of 256 rows), with
+#: query lengths on either side of one pass and of two (and, at the
+#: kernel's, queries of 1, 9 and 17 rows at G = 2, 2 and 4), each walk
+#: as (R, max G, query lengths, B, T_pad)
+EMU_WALKS = [(2, 4, (7, 8, 9, 15, 16, 17), 4, 32),
+             (tb.DIRS_R, tb.DIRS_MAX_G,
+              (1, 9, 17, 255, 256, 257, 511, 512, 513), 4, 40)]
+
+
+@pytest.mark.parametrize("gaps", EMU_GAPS)
 @pytest.mark.parametrize("algo", ALGOS)
 def test_dir_kernel_emulation_matches_reference(algo, gaps):
-    """T1 as its kernel computes it (a warp per pair, 32-row strips, the
-    strip buffer): three strips, the last one partial."""
-    q, prof, tgt, lens = _batch(11, 70, B=4)
-    want = _ref_dirs(prof, tgt, *gaps, algo)
-    got = dirs_warp_reference(torch.from_numpy(prof),
-                                 torch.from_numpy(tgt), *gaps, algo,
-                                 torch.from_numpy(lens)).numpy()
-    _assert_region_equal(got, want, lens)
-    plain = tb.dir_matrix_reference(torch.from_numpy(prof),
-                                    torch.from_numpy(tgt), *gaps, algo,
-                                    torch.from_numpy(lens)).numpy()
-    np.testing.assert_array_equal(got, plain)
+    """T1 as its kernel computes it (groups of G threads, R rows a
+    thread, passes through the pass buffer, the ``(B, T_pad, Qs)`` stores,
+    every byte written) against the reference's scan and the plain
+    version, byte for byte.  The reference runs once per walk at the
+    longest query: a shorter query's rows are its first rows."""
+    for R, max_g, qlens, B, T_pad in EMU_WALKS:
+        q, prof, tgt, lens = _batch(11, max(qlens), B=B, T_pad=T_pad)
+        want = _ref_dirs(prof, tgt, *gaps, algo)
+        for Q in qlens:
+            p = torch.from_numpy(np.ascontiguousarray(prof[:Q]))
+            args = (p, torch.from_numpy(tgt), *gaps, algo,
+                    torch.from_numpy(lens))
+            got = dirs_wave_reference(*args, R=R, max_g=max_g).numpy()
+            _assert_region_equal(got, want[:, :Q], lens)
+            plain = tb.dir_matrix_reference(*args).numpy()
+            np.testing.assert_array_equal(got, plain, err_msg=f"Q={Q}")
 
 
 def _ends(q, tgt, lens, go, ge, algo):
@@ -289,12 +416,13 @@ def _ends(q, tgt, lens, go, ge, algo):
     return qes, tes
 
 
-@pytest.mark.parametrize("gaps", [(3, 1), (1, 3), (0, 0)])
-@pytest.mark.parametrize("algo", ALGOS)
-def test_walk_matches_reference(algo, gaps):
-    """T2's plain version and its kernel's emulation against the
-    reference's device walk: ``buf``, ``i`` and ``j``; semi-global ends
-    on column 0 (``te == -1``) included."""
+#: T2's tile at the kernel's size and at a small one (16 rows, 8
+#: columns) whose edges the paths cross often
+WALK_TILES = [tb.WALK_TILE, (16, 8)]
+
+
+def _walk_case(algo, gaps):
+    """Direction bytes, ends and the reference's walk of one batch."""
     q, prof, tgt, lens = _batch(17, 30, B=8, T_pad=128)
     dirs = _ref_dirs(prof, tgt, *gaps, algo)
     qes, tes = _ends(q, tgt, lens, *gaps, algo)
@@ -302,11 +430,27 @@ def test_walk_matches_reference(algo, gaps):
         qes[3], tes[3] = len(q) - 1, -1  # an end on the j = 0 boundary
     want = [np.array(x) for x in ref_tb._walk_batch_device(
         jnp.asarray(dirs), jnp.asarray(qes), jnp.asarray(tes), algo)]
-    args = (torch.from_numpy(dirs), torch.from_numpy(qes),
-            torch.from_numpy(tes), algo)
+    return prof, tgt, lens, dirs, qes, tes, want
+
+
+@pytest.mark.parametrize("gaps", EMU_GAPS)
+@pytest.mark.parametrize("algo", ALGOS)
+def test_walk_matches_reference(algo, gaps):
+    """T2's plain version and its kernel's emulation (at both tiles, on
+    the reference's bytes copied into T1's layout and on T1's emulation's
+    own buffer) against the reference's device walk: ``buf``, ``i`` and
+    ``j``; semi-global ends on column 0 (``te == -1``) included."""
+    prof, tgt, lens, dirs, qes, tes, want = _walk_case(algo, gaps)
+    t1 = dirs_wave_reference(torch.from_numpy(prof), torch.from_numpy(tgt),
+                             *gaps, algo, torch.from_numpy(lens))
+    ends = (torch.from_numpy(qes), torch.from_numpy(tes), algo)
     before = tb.plain_calls["traceback_walk"]
-    for fn in (tb._walk_batch_device, walk_thread_reference):
-        got = fn(*args)
+    runs = [tb._walk_batch_device(torch.from_numpy(dirs), *ends)]
+    for tile in WALK_TILES:
+        runs.append(walk_tiled_reference(torch.from_numpy(dirs), *ends,
+                                         tile=tile))
+        runs.append(walk_tiled_reference(t1, *ends, tile=tile))
+    for got in runs:
         for g, w, name in zip(got, want, ("buf", "i", "j")):
             assert g.dtype == (torch.uint8 if name == "buf" else torch.int32)
             np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
@@ -321,6 +465,54 @@ def test_walk_matches_reference(algo, gaps):
         col = buf[:, b]
         assert (qs, ts) == (int(i_s[b]), int(j_s[b]))
         assert list(col[col != 255][::-1]) == ops
+
+
+def _gap_case(algo, gaps):
+    """`_walk_case` for a batch whose paths hold long gaps: the query is
+    ``a + x + c`` (25, 20 and 25 residues), the targets ``a + c`` (20
+    query rows deleted, an F run), ``a + y + c`` with ``y`` 20 other
+    residues (at most one diagonal in place of 40 gap steps), ``a + c``
+    with 20 residues inserted between (an E run), and a random one."""
+    rng = np.random.default_rng(29)
+    a, x, c, y, z = (rng.integers(0, 20, n).astype(np.uint8)
+                     for n in (25, 20, 25, 20, 20))
+    q = np.concatenate([a, x, c])
+    seqs = [np.concatenate(p) for p in ((a, c), (a, y, c), (a, z, z, c))]
+    seqs.append(rng.integers(0, 20, 90).astype(np.uint8))
+    T_pad = 128
+    tgt = np.zeros((len(seqs), T_pad), np.int32)
+    lens = np.array([len(t_) for t_ in seqs], np.int32)
+    for b, t_ in enumerate(seqs):
+        tgt[b, :len(t_)] = t_
+    prof = np.ascontiguousarray(S[q.astype(np.int64)])
+    dirs = _ref_dirs(prof, tgt, *gaps, algo)
+    qes, tes = _ends(q, tgt, lens, *gaps, algo)
+    want = [np.array(v) for v in ref_tb._walk_batch_device(
+        jnp.asarray(dirs), jnp.asarray(qes), jnp.asarray(tes), algo)]
+    return dirs, qes, tes, want
+
+
+@pytest.mark.parametrize("algo", ALGOS)
+def test_walk_tiles_cover_every_exit(algo):
+    """At the small tile, the paths of `test_walk_matches_reference`'s
+    batches and of a batch with long gaps (`_gap_case`) leave tiles by the
+    top row, the left column and the corner, carry E and F runs across an
+    edge, and (nw, hw) walk row or column 0; each walk equal to the
+    reference's."""
+    stats = {}
+    for gaps in EMU_GAPS:
+        for dirs, qes, tes, want in (_walk_case(algo, gaps)[3:],
+                                     _gap_case(algo, gaps)):
+            got = walk_tiled_reference(torch.from_numpy(dirs),
+                                       torch.from_numpy(qes),
+                                       torch.from_numpy(tes), algo,
+                                       tile=WALK_TILES[1], stats=stats)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.numpy(), w)
+    for key in ("row", "col", "corner", "e_run", "f_run"):
+        assert stats[key] > 0, (key, stats)
+    if algo in ("nw", "hw"):
+        assert stats["boundary"] > 0, stats
 
 
 def _full_rows(q, targets, go, ge, algo):
