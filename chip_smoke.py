@@ -18,7 +18,10 @@ Phases (the first failure ends the run with a nonzero exit code):
    ``tools/dpx_rate.cu``, which then measures the instructions per SM
    per clock of the two DPX instructions of the wavefront walk (K1-K6),
    alone and in the walk's sw cell, and of the packed walk's (K7) s16x2
-   add-max and add-min, alone and in its cell of two cells;
+   add-max and add-min, alone and in its cell of two cells; then the C
+   codec and result types of ``pyopal_tpu_torch/native``, which must be
+   built and active (``results.ScoreResult`` the C type, the C encoder
+   bound in ``alphabet`` and ``io``), and ``_device_info()``;
 3. each kernel against its plain PyTorch version on the card, every
    output plane in score and end modes: all four algorithms at several
    query tiers, with edge target lengths and a 2500-residue self-hit
@@ -60,6 +63,12 @@ Phases (the first failure ends the run with a nonzero exit code):
    5,120 fine tier) through ``Aligner.align`` in end and score modes,
    counted the same way, held against the plain versions on a
    1,000-target slice and against the oracle on the shortest targets;
+   then the I/O path (5g): the main database written as FASTA, read with
+   the C scanner and with the Python fallback (equal), saved and loaded
+   as an archive, and searched through one ``Aligner.align`` and
+   ``align_arrays`` in score and end modes, counted (K1 3, K2 2), its
+   results (C ``ScoreResult`` objects) equal to the main database's bit
+   for bit, each I/O step timed;
    then the sharded path (``pyopal_tpu_torch.parallel``) on the same
    database: ``align_arrays_sharded`` over a 4-shard mesh on the card in
    sw score and end modes (K2 and K1 once per shard per cohort), equal to
@@ -117,8 +126,12 @@ Phases (the first failure ends the run with a nonzero exit code):
    groups beside it),
    end-to-end throughput, long-query and sharded call times, and each
    kernel's launches in one ``align_arrays`` and one ``align`` call,
-   counted; T1 and T2 per batch of one full-mode query (three launches
-   queued behind a sleep on the card, so that the host's time stays out),
+   counted; one 256-aa ``align`` split into K1 (CUDA events around its
+   launch), result building and the rest of the call (each call timed
+   with `pyopal_tpu_torch.utils.profiling.Timer`), with the C and the
+   Python result builders timed on the same arrays; T1 and T2 per batch
+   of one full-mode query (three launches queued behind a sleep on the
+   card, so that the host's time stays out),
    their bounds (T1: the direction bytes, or the recurrence's 16 int32
    operations a cell at the int32 rate; T2: a 32-byte sector a walk step),
    the longest walk of each launch and T2's clock cycles a step on it, T1's
@@ -355,6 +368,11 @@ def main():
     from pyopal_tpu_torch.results import cigar_string
     from pyopal_tpu_torch.parallel import sharded
     from pyopal_tpu_torch.parallel import sharded_flat as sfm
+    from pyopal_tpu_torch import alphabet as alphabet_mod
+    from pyopal_tpu_torch import io as io_mod
+    from pyopal_tpu_torch import native
+    from pyopal_tpu_torch import results as results_mod
+    from pyopal_tpu_torch.utils.profiling import Timer
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -397,6 +415,24 @@ def main():
           "int32_lanes_per_sm": INT32_LANES_PER_SM,
           "wave_bound_lanes_per_sm": wave_lanes,
           "narrow_bound_instructions_per_sm": narrow_rate, **card})
+
+    # the C codec and result types (``pyopal_tpu_torch/native``), built at
+    # the package's import: the run fails unless both are active, so that
+    # no pure-Python fallback hides what runs
+    active = {
+        "ensure_built": native.ensure_built(),
+        "results": results_mod.ScoreResult.__module__,
+        "alphabet_encoder": alphabet_mod._native_encoder is not None,
+        "io_encoder": io_mod._native_encoder is not None,
+    }
+    if active != {"ensure_built": True,
+                  "results": "pyopal_tpu_torch.native._results",
+                  "alphabet_encoder": True, "io_encoder": True}:
+        fail(f"the C extensions are not active: {active}")
+    emit({"phase": "native", **active,
+          "libraries": [sys.modules[f"pyopal_tpu_torch.native.{n}"].__file__
+                        for n in ("_encoder", "_results")]})
+    emit({"phase": "device_info", **pt._device_info()})
 
     S = pt.ScoringMatrix.from_name("BLOSUM50").int_data()
     algos = ("sw", "nw", "hw", "ov")
@@ -1108,8 +1144,70 @@ def main():
           "oracle_wait_seconds": oracle_wait,
           "best_35000_sw": int(long_arrays[35000][0].max())})
 
-    # --- 5c. the sharded path at full size ----------------------------------
+    # --- 5g. the I/O path at full size --------------------------------------
+    # the main database written as FASTA (60 residues a line), read back
+    # with the C scanner and with the Python fallback, saved and loaded as
+    # an archive, then searched as the main path searches it, counted from
+    # 0: one `align` (K1) and `align_arrays` in both modes (K2 and K1 each)
     import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as io_dir:
+        fasta_path = os.path.join(io_dir, "main.fasta")
+        with open(fasta_path, "wb") as f:
+            for i, seq in enumerate(db_seqs):
+                f.write(b">t%d synthetic\n" % i)
+                raw = seq.encode("ascii")
+                f.write(b"\n".join(raw[j:j + 60]
+                                   for j in range(0, len(raw), 60)) + b"\n")
+        io_seconds = {}
+        with Timer(0, 0) as t:
+            names, fasta_db = pt.read_fasta(fasta_path)
+        io_seconds["read_fasta_c"] = t.seconds
+        with open(fasta_path, "rb") as f:
+            data = f.read()
+        with Timer(0, 0) as t:
+            py_names, py_seqs = io_mod._parse_fasta_py(data, db.alphabet)
+        io_seconds["read_fasta_python"] = t.seconds
+        if names != py_names or len(py_seqs) != n_t or any(
+                not np.array_equal(s_, fasta_db.get_encoded(i))
+                for i, s_ in enumerate(py_seqs)):
+            fail("read_fasta: the C scanner and the Python fallback differ")
+        with Timer(0, 0) as t:
+            pt.save_database(os.path.join(io_dir, "main"), fasta_db, names)
+        io_seconds["save_database"] = t.seconds
+        with Timer(0, 0) as t:
+            loaded_names, loaded = pt.load_database(
+                os.path.join(io_dir, "main"))
+        io_seconds["load_database"] = t.seconds
+        archive_bytes = os.path.getsize(os.path.join(io_dir, "main.npz"))
+        fasta_bytes = os.path.getsize(fasta_path)
+    if loaded_names != [f"t{i}" for i in range(n_t)] or any(
+            not np.array_equal(loaded.get_encoded(i), db.get_encoded(i))
+            for i in range(n_t)):
+        fail("load_database: the archive differs from the main database")
+    zero_counts()
+    io_single = al.align(queries[0], loaded, mode="score")
+    io_s = al.align_arrays(queries, loaded, mode="score")
+    io_e = al.align_arrays(queries, loaded, mode="end")
+    io_counts = launch_counts()
+    if io_counts != only(ragged=3, q8=2):
+        fail(f"I/O path launches: {io_counts}")
+    if any(type(r) is not results_mod.ScoreResult for r in io_single):
+        fail("the loaded database's align built no C ScoreResult")
+    if [(r.target_index, r.score) for r in io_single] != [
+            (r.target_index, r.score) for r in single]:
+        fail("align on the loaded database differs from the main database")
+    if not np.array_equal(io_s["scores"], res_s["scores"]) or any(
+            not np.array_equal(io_e[k], res_e[k]) for k in res_e):
+        fail("align_arrays on the loaded database differs from the main "
+             "database")
+    emit({"phase": "io_path", "launches": io_counts, "targets": n_t,
+          "fasta_bytes": fasta_bytes, "archive_bytes": archive_bytes,
+          **{f"{k}_seconds": v for k, v in io_seconds.items()},
+          "equal": True, "seconds": time.perf_counter() - t0, **card})
+
+    # --- 5c. the sharded path at full size ----------------------------------
 
     tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     tmp = tmp_dir.name
@@ -2069,6 +2167,72 @@ def main():
         fn()
         return launch_counts()
 
+    def split_single_align(n=5):
+        """One 256-aa `align` in ``n`` calls, each timed with `Timer`:
+        K1 by CUDA events around its launch, the result building by the
+        host clock, the rest of the call; then the C and the Python
+        builders on the same arrays (query 0's scores and ends)."""
+        real_launch, real_build = _cuda.launch, engine.build_score_results
+        k1_events, build_s, call_s = [], [], []
+
+        def k1_timed(name, *a):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            real_launch(name, *a)
+            stop.record()
+            k1_events.append((name, start, stop))
+
+        def build_timed(*a):
+            t1 = time.perf_counter()
+            out = real_build(*a)
+            build_s.append(time.perf_counter() - t1)
+            return out
+
+        _cuda.launch, engine.build_score_results = k1_timed, build_timed
+        try:
+            for _ in range(n):
+                with Timer(len(enc[0]), residues) as t:
+                    one()
+                call_s.append(t.seconds)
+        finally:
+            _cuda.launch, engine.build_score_results = real_launch, real_build
+        torch.cuda.synchronize()
+        if [e[0] for e in k1_events] != ["ragged"] * n or len(build_s) != n:
+            fail(f"align split: launches {[e[0] for e in k1_events]} and "
+                 f"{len(build_s)} builds in {n} calls")
+        k1_s = [a.elapsed_time(b) * 1e-3 for _, a, b in k1_events]
+        arrays = {"score": (res_s["scores"][0],),
+                  "end": tuple(res_e[k][0] for k in
+                               ("scores", "query_ends", "target_ends"))}
+        builders = {
+            "score": (results_mod.build_score_results,
+                      results_mod._py_build_score_results),
+            "end": (results_mod.build_end_results,
+                    results_mod._py_build_end_results),
+        }
+        builder_s = {}
+        for mode, (c_fn, py_fn) in builders.items():
+            c_out, py_out = c_fn(0, *arrays[mode]), py_fn(0, *arrays[mode])
+            if [r.__reduce__()[1] for r in c_out] != [
+                    r.__reduce__()[1] for r in py_out]:
+                fail(f"the C and Python {mode} builders differ")
+            for name, fn in (("c", c_fn), ("python", py_fn)):
+                times = []
+                for _ in range(n):
+                    with Timer(0, 0) as t:
+                        fn(0, *arrays[mode])
+                    times.append(t.seconds)
+                builder_s[f"{mode}_{name}_seconds"] = times
+        return {
+            "call_seconds": call_s, "gcups": [
+                len(enc[0]) * residues / c / 1e9 for c in call_s],
+            "k1_seconds": k1_s, "build_results_seconds": build_s,
+            "rest_seconds": [c - k - b for c, k, b in
+                             zip(call_s, k1_s, build_s)],
+            "hits": n_t, **builder_s,
+        }
+
     def batch():
         return al.align_arrays(queries, db, mode="score")
 
@@ -2095,6 +2259,7 @@ def main():
     batch_sharded_s = wall(batch_sharded, 3)
     group_sharded_s = wall(group_sharded, 3)
     single_s = wall(one, 5)
+    align_split = split_single_align()
     cells_batch = sum(len(q) for q in enc) * residues
     # three calls of each long align: the end and score calls of phase 5b
     # and more end calls (one of the 35,000-residue query, ~15 s each)
@@ -2117,6 +2282,7 @@ def main():
           **{f"align_{n}_end_gcups":
              n * residues / float(np.median(long_times[n, "end"])) / 1e9
              for n in long_q}, **card})
+    emit({"phase": "align_split", **align_split, **card})
 
     # T1 and T2 over the batches of one full-mode query (phase 5f's: 256 aa,
     # sw, gaps 3/1), each launch timed alone, three launches queued behind a
@@ -2296,8 +2462,9 @@ def main():
     kernels = []
     for name, source, replaces in entries:
         key = name
-        launches = sum(c[name] for c in (counts, long_counts, sharded_counts,
-                                         x_counts, full_counts))
+        launches = sum(c[name] for c in (counts, long_counts, io_counts,
+                                         sharded_counts, x_counts,
+                                         full_counts))
         r = results[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

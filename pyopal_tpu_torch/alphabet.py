@@ -1,7 +1,7 @@
 """Ordinal encoding of biological sequences.
 
-Port of ``pyopal_tpu/alphabet.py`` on its pure-Python path (the optional
-C codec of ``pyopal_tpu/native/`` is not carried over).  Original notes:
+Port of ``pyopal_tpu/alphabet.py``, with the port's own C codec
+(``native/encoder.c``) as its fast path.  Original notes:
 TPU-native re-design of the reference ``Alphabet`` class
 (upstream PyOpal ``src/pyopal/lib.pyx:186-332``): same public semantics
 (<=32 symbols, ``*`` wildcard, uppercase-only validation, 256-entry
@@ -27,6 +27,12 @@ for _c in range(ord("A"), ord("Z") + 1):
     _IS_ALPHA[_c] = True
 for _c in range(ord("a"), ord("z") + 1):
     _IS_ALPHA[_c] = True
+
+try:  # optional native fast path (see native/encoder.c)
+    from .native import _encoder as _native_encoder
+except ImportError:  # pragma: no cover - extension not built
+    _native_encoder = None
+
 
 class Alphabet:
     """A fixed symbol set mapping letters to ordinal codes.
@@ -125,6 +131,15 @@ class Alphabet:
         out = np.frombuffer(memoryview(encoded), dtype=np.uint8)
         if seq.shape[0] != out.shape[0]:
             raise ValueError("Buffers do not have the same dimensions")
+        if (
+            _native_encoder is not None
+            and seq.flags["C_CONTIGUOUS"]
+            and out.flags["C_CONTIGUOUS"]
+        ):
+            # zero-copy native path: validates and writes straight
+            # into the caller's buffer
+            _native_encoder.encode_into(seq, out, self._ahash)
+            return
         out[: seq.shape[0]] = self._encode_array(seq)
 
     def decode_into(self, encoded, sequence) -> None:
@@ -142,13 +157,17 @@ class Alphabet:
         non-ASCII-alpha input raises, and characters absent from the
         alphabet either map to the wildcard or raise when there is none.
         """
+        if _native_encoder is not None and seq.flags["C_CONTIGUOUS"]:
+            encoded = _native_encoder.encode(seq, self._ahash)
+            return np.frombuffer(encoded, dtype=np.uint8)
         codes = self._ahash[seq]
         bad_mask = ~_IS_ALPHA[seq]
         if self._unknown < 0:
             bad_mask |= codes < 0
         if seq.size and bad_mask.any():
             # classify the FIRST offending character in sequence order,
-            # exactly like the reference's sequential scan — lib.pyx:262-270
+            # exactly like the native extension's (and the reference's)
+            # sequential scan — lib.pyx:262-270
             i = int(np.argmax(bad_mask))
             bad = int(seq[i])
             if not _IS_ALPHA[bad]:

@@ -2,10 +2,8 @@
 
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C entry point, loaded with `ctypes` (no PyTorch headers, so a
-build takes seconds).  Libraries go to ``build/pyopal_tpu_torch/`` at
-the repository root when the package runs from a writable checkout, and
-to ``pyopal_tpu_torch/`` under the user's cache directory
-(``$XDG_CACHE_HOME`` or ``~/.cache``) when it is installed.  They are
+build takes seconds).  Libraries go to `pyopal_tpu_torch._build.build_dir`
+(``build/pyopal_tpu_torch/`` in a writable checkout).  They are
 named by a hash of the sources and flags, so a changed source rebuilds
 and an unchanged one loads as it is.  Nothing builds at import: the
 first CUDA tensor that reaches a kernel builds it, and `build_all`
@@ -26,18 +24,10 @@ from pathlib import Path
 
 import torch
 
+from .._build import build_dir
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-
-
-def _build_dir() -> Path:
-    root = Path(__file__).resolve().parents[2]
-    if (root / "pyproject.toml").is_file() and os.access(root, os.W_OK):
-        return root / "build" / "pyopal_tpu_torch"
-    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
-    return Path(cache) / "pyopal_tpu_torch"
-
-
-BUILD_DIR = _build_dir()
+BUILD_DIR = build_dir()
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -146,6 +146,15 @@ class FlatPacked:
     inv_pos: np.ndarray  # (n_targets,) int32: target i -> block*LANES+lane
     chunk: int = 64  # column-chunk quantum of this layout
 
+    @property
+    def total_cells_padded(self) -> int:
+        # .size covers non-default lane widths (q8 packs use 256/512)
+        return int(self.flat_targets.size)
+
+    @property
+    def total_cells(self) -> int:
+        return int(self.lengths.sum())
+
 
 @dataclass
 class FlatLayout:

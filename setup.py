@@ -24,10 +24,17 @@ setup(
         "pyopal_tpu.tests",
         "pyopal_tpu_torch",
         "pyopal_tpu_torch.models",
+        "pyopal_tpu_torch.native",
         "pyopal_tpu_torch.ops",
         "pyopal_tpu_torch.parallel",
+        "pyopal_tpu_torch.tests",
+        "pyopal_tpu_torch.utils",
     ],
-    package_data={"pyopal_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={
+        "pyopal_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "py.typed", "*.pyi"],
+        "pyopal_tpu_torch.native": ["*.c"],
+        "pyopal_tpu_torch.parallel": ["*.pyi"],
+    },
     ext_modules=[
         Extension(
             "pyopal_tpu.native._encoder",
@@ -37,6 +44,18 @@ setup(
         Extension(
             "pyopal_tpu.native._results",
             sources=["pyopal_tpu/native/results.c"],
+            extra_compile_args=["-O3"],
+        ),
+        # the PyTorch port's own copies (a source checkout builds them
+        # at import instead: pyopal_tpu_torch/native/__init__.py)
+        Extension(
+            "pyopal_tpu_torch.native._encoder",
+            sources=["pyopal_tpu_torch/native/encoder.c"],
+            extra_compile_args=["-O3"],
+        ),
+        Extension(
+            "pyopal_tpu_torch.native._results",
+            sources=["pyopal_tpu_torch/native/results.c"],
             extra_compile_args=["-O3"],
         ),
     ],
