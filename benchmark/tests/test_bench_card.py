@@ -1,0 +1,29 @@
+"""One short run of each cell on the card (skips without one)."""
+
+import json
+import subprocess
+import sys
+
+import pytest
+
+from benchmark.tests import fixture_cell
+
+BENCH = json.loads((fixture_cell.REPO / "BENCHMARK.json").read_text())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_cell_runs_on_the_card(cell):
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; torch sees none")
+    out = subprocess.run(
+        [sys.executable, "benchmark/run.py", "--workload", cell, "--seed",
+         "2147483699", "--seconds", "3", "--trace", "0"],
+        capture_output=True, text=True, timeout=1200, cwd=fixture_cell.REPO,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["correct"] is True
+    assert result["device"]["platform"] == "gpu"
