@@ -24,6 +24,7 @@ from .database import BaseDatabase
 from .matrices import ScoringMatrix
 from .ops import engine
 from .results import build_end_results, build_score_results
+from .utils.profiling import span, spanned
 
 UINT32_MAX = 0xFFFFFFFF
 
@@ -165,6 +166,7 @@ class Aligner:
             (Aligner, self.scoring_matrix, self.gap_open, self.gap_extend)
         )
 
+    @spanned("pyopal.align")
     def align(
         self,
         query,
@@ -230,9 +232,10 @@ class Aligner:
                 "database and score matrix have different alphabets"
             )
 
-        encoded = np.frombuffer(
-            database.alphabet.encode(query), dtype=np.uint8
-        )
+        with span("pyopal.encode"):
+            encoded = np.frombuffer(
+                database.alphabet.encode(query), dtype=np.uint8
+            )
 
         with database.lock.read:
             start, end = _clamp_slice(database.get_size(), start, end)
@@ -310,6 +313,7 @@ class Aligner:
                 device=self.device,
             )
 
+    @spanned("pyopal.align_batch")
     def align_batch(
         self,
         queries,
@@ -345,10 +349,11 @@ class Aligner:
             raise ValueError(
                 "database and score matrix have different alphabets"
             )
-        encoded = [
-            np.frombuffer(database.alphabet.encode(q), dtype=np.uint8)
-            for q in queries
-        ]
+        with span("pyopal.encode"):
+            encoded = [
+                np.frombuffer(database.alphabet.encode(q), dtype=np.uint8)
+                for q in queries
+            ]
         with database.lock.read:
             start, end = _clamp_slice(database.get_size(), start, end)
             if start > end:
@@ -379,17 +384,19 @@ class Aligner:
             )
 
         out = []
-        for qi in range(len(encoded)):
-            if mode == "score":
-                out.append(build_score_results(start, scores[qi]))
-            else:
-                out.append(
-                    build_end_results(
-                        start, scores[qi], q_ends[qi], t_ends[qi]
+        with span("pyopal.results"):
+            for qi in range(len(encoded)):
+                if mode == "score":
+                    out.append(build_score_results(start, scores[qi]))
+                else:
+                    out.append(
+                        build_end_results(
+                            start, scores[qi], q_ends[qi], t_ends[qi]
+                        )
                     )
-                )
         return out
 
+    @spanned("pyopal.align_arrays")
     def align_arrays(
         self,
         queries,
@@ -426,10 +433,11 @@ class Aligner:
             raise ValueError(
                 "database and score matrix have different alphabets"
             )
-        encoded = [
-            np.frombuffer(database.alphabet.encode(q), dtype=np.uint8)
-            for q in queries
-        ]
+        with span("pyopal.encode"):
+            encoded = [
+                np.frombuffer(database.alphabet.encode(q), dtype=np.uint8)
+                for q in queries
+            ]
         with database.lock.read:
             start, end = _clamp_slice(database.get_size(), start, end)
             if start > end:

@@ -37,6 +37,11 @@ Routing is decided before any launch and never after a failure:
 
 Results are assembled into global target order on the device and come
 back to the host in one copy per launch (per long query).
+
+While a `torch.profiler` runs, the stages open ``pyopal.*`` spans and
+add to the counters of `pyopal_tpu_torch.utils.profiling`: the cells
+each kernel launch needed and walked, the bytes copied back, profile
+cache hits and misses.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from ..results import (
     build_score_results,
     cigar_string,
 )
+from ..utils.profiling import count, counting, span, spanned
 from . import packing, q8, ragged, ragged_long, sweep, traceback
 
 
@@ -97,6 +103,35 @@ def _slice_maxlen(database, start, end) -> int:
     return t_max
 
 
+def _count_cells(qlens, fp: packing.FlatPacked, walks):
+    """Count one launch's cells: ``cells.needed``, the ``qlens`` query
+    residues times the slice's residues, and ``cells.walked``, what the
+    kernel's walks step through: for each ``(rows, G)`` walk its rows in
+    whole passes times the pack's steps at ``G`` (`ragged.walk_rows`,
+    `ragged.walk_steps`; the steps are kept on the pack).  The engine
+    launches at gaps >= 0 only (`_fp32_exact_domain`), where every walk
+    stops at its query's length."""
+    if not counting():
+        return
+    steps = fp.__dict__.setdefault("_walk_steps", {})
+    walked = 0
+    for rows, G in walks:
+        if G not in steps:
+            steps[G] = ragged.walk_steps(fp.lengths, G)
+        walked += ragged.walk_rows(rows, G) * steps[G]
+    count("cells.needed", sum(qlens) * fp.total_cells)
+    count("cells.walked", walked)
+
+
+def _copy_back(dev_out):
+    """A launch's assembled outputs as a host array (blocks on the
+    device)."""
+    with span("pyopal.copyback"):
+        count("copyback.bytes", dev_out.numel() * dev_out.element_size())
+        return dev_out.cpu().numpy()
+
+
+@spanned("pyopal.assemble")
 def _assemble_flat(inv_pos, s, qe, te, with_ends):
     """Reorder ragged-kernel outputs ``(n_q, n_blocks, lanes)`` into
     global target order."""
@@ -111,6 +146,7 @@ def _assemble_flat(inv_pos, s, qe, te, with_ends):
     return torch.stack([scores, one(qe), one(te)], dim=1)
 
 
+@spanned("pyopal.assemble")
 def _assemble_flat_q8(inv_pos, s, qe, te, with_ends):
     """Reorder q8-kernel outputs ``(n_g, n_blocks, QB, lanes)`` into
     per-slot rows in global target order (row = g * QB + qb; padding
@@ -140,7 +176,9 @@ def _cached(key, make):
     with _PROFILE_CACHE_LOCK:
         hit = _PROFILE_CACHE.get(key)
     if hit is not None:
+        count("profile.hits", 1)
         return hit
+    count("profile.misses", 1)
     out = make()
     with _PROFILE_CACHE_LOCK:
         while len(_PROFILE_CACHE) >= _PROFILE_CACHE_MAX:
@@ -149,6 +187,7 @@ def _cached(key, make):
     return out
 
 
+@spanned("pyopal.profile")
 def _profiles_for_cohort(cohort, matrix, device):
     """Device-resident stacked profiles + query lengths, memoized."""
     key = (
@@ -168,6 +207,7 @@ def _profiles_for_cohort(cohort, matrix, device):
     return _cached(key, make)
 
 
+@spanned("pyopal.profile")
 def _profiles_q8(queries_enc, matrix, groups, lanes, device):
     """Device-resident q8 profile stack (+qv/maxq), memoized."""
     key = (
@@ -235,6 +275,13 @@ def plan_tier_launches(queries_enc, safe_pad):
     return plan
 
 
+@spanned("pyopal.pack")
+def _packed(database, start, end, device, **kw):
+    """A slice's flat pack and its device tensors (`_flat_device`)."""
+    fp = packing.pack_database_slice_flat(database, start, end, **kw)
+    return fp, _flat_device(fp, device)
+
+
 def _search_batch_kernels(
     database, start, end, queries_enc, matrix, go, ge, algorithm,
     with_ends, device, safe_pad,
@@ -246,15 +293,12 @@ def _search_batch_kernels(
     n = max(end - start, 0)
     launches = []  # (device tensor, row -> query-index list)
 
-    for _, lanes_q8, groups, v2_idx in plan_tier_launches(
-        queries_enc, safe_pad
-    ):
+    with span("pyopal.route"):
+        plan = plan_tier_launches(queries_enc, safe_pad)
+    for _, lanes_q8, groups, v2_idx in plan:
         if groups:
-            fpw = packing.pack_database_slice_flat(
-                database, start, end, lanes=lanes_q8
-            )
-            flat_t, lengths, bos, cos, los, inv_pos = _flat_device(
-                fpw, device
+            fpw, (flat_t, lengths, bos, cos, los, inv_pos) = _packed(
+                database, start, end, device, lanes=lanes_q8
             )
             for k in range(0, len(groups), _Q8_LAUNCH_GROUPS):
                 gs = groups[k : k + _Q8_LAUNCH_GROUPS]
@@ -266,37 +310,48 @@ def _search_batch_kernels(
                     int(go), int(ge), algorithm, with_ends,
                     chunk=fpw.chunk,
                 )
+                # an empty slot of a partial group walks nothing
+                qlens = [len(queries_enc[qi]) for g in gs for qi in g]
+                G = ragged.wave_group(profs.shape[1] // q8.QB)
+                _count_cells(qlens, fpw, [(q, G) for q in qlens])
                 launches.append((
                     _assemble_flat_q8(inv_pos, s, qe, te, with_ends),
                     [qi for g in gs for qi in g],
                 ))
         if v2_idx:
             cohort = [queries_enc[i] for i in v2_idx]
-            fp = packing.pack_database_slice_flat(database, start, end)
-            flat_t, lengths, bos, cos, los, inv_pos = _flat_device(fp, device)
+            fp, (flat_t, lengths, bos, cos, los, inv_pos) = _packed(
+                database, start, end, device
+            )
             profs, qlens = _profiles_for_cohort(cohort, matrix, device)
             s, qe, te = ragged.search_flat(
                 profs, qlens, flat_t, lengths, bos, cos, los,
                 int(go), int(ge), algorithm, with_ends, chunk=fp.chunk,
                 safe_pad=safe_pad,
             )
+            G = ragged.wave_group(profs.shape[1])
+            _count_cells(
+                [len(q) for q in cohort], fp, [(len(q), G) for q in cohort]
+            )
             launches.append((
                 _assemble_flat(inv_pos, s, qe, te, with_ends),
                 list(v2_idx),
             ))
 
-    scores = np.zeros((nq, n), dtype=np.int32)
-    q_ends = np.full((nq, n), -1, dtype=np.int32)
-    t_ends = np.full((nq, n), -1, dtype=np.int32)
+    with span("pyopal.scatter"):
+        scores = np.zeros((nq, n), dtype=np.int32)
+        q_ends = np.full((nq, n), -1, dtype=np.int32)
+        t_ends = np.full((nq, n), -1, dtype=np.int32)
     for dev_out, order in launches:
-        block = dev_out.cpu().numpy()
-        for pos, qi in enumerate(order):
-            if with_ends:
-                scores[qi] = block[pos, 0]
-                q_ends[qi] = block[pos, 1]
-                t_ends[qi] = block[pos, 2]
-            else:
-                scores[qi] = block[pos]
+        block = _copy_back(dev_out)
+        with span("pyopal.scatter"):
+            for pos, qi in enumerate(order):
+                if with_ends:
+                    scores[qi] = block[pos, 0]
+                    q_ends[qi] = block[pos, 1]
+                    t_ends[qi] = block[pos, 2]
+                else:
+                    scores[qi] = block[pos]
     return scores, q_ends, t_ends
 
 
@@ -327,7 +382,7 @@ def _search_batch_sweep(
             prof[None], [q.shape[0]], cols, lengths, go, ge, algorithm
         )
         block = torch.stack([s[0], qe[0], te[0]]).index_select(1, inv_pos)
-        out.append(block.cpu().numpy())
+        out.append(_copy_back(block))
     return out
 
 
@@ -379,28 +434,31 @@ def search_scores_batch(
         return z, z.copy(), z.copy()
 
     queries_enc = [np.asarray(q, dtype=np.uint8) for q in queries_enc]
-    use_kernels = (
-        np.abs(matrix).max(initial=0) <= 256
-        and _fp32_exact_domain(
-            database, start, end, queries_enc, matrix, gap_open, gap_extend
+    with span("pyopal.route"):
+        use_kernels = (
+            np.abs(matrix).max(initial=0) <= 256
+            and _fp32_exact_domain(
+                database, start, end, queries_enc, matrix, gap_open,
+                gap_extend,
+            )
         )
-    )
-    # pad symbol 31 scores PAD for every query row iff the alphabet
-    # leaves profile column 31 unused
-    safe_pad = matrix.shape[1] <= 31
-    kernel_ok = [
-        use_kernels
-        and ragged.supports(q.shape[0], algorithm, with_ends, safe_pad)
-        for q in queries_enc
-    ]
-    long_idx = [
-        i for i, q in enumerate(queries_enc)
-        if use_kernels and q.shape[0] > 0 and not kernel_ok[i]
-    ]
+        # pad symbol 31 scores PAD for every query row iff the alphabet
+        # leaves profile column 31 unused
+        safe_pad = matrix.shape[1] <= 31
+        kernel_ok = [
+            use_kernels
+            and ragged.supports(q.shape[0], algorithm, with_ends, safe_pad)
+            for q in queries_enc
+        ]
+        long_idx = [
+            i for i, q in enumerate(queries_enc)
+            if use_kernels and q.shape[0] > 0 and not kernel_ok[i]
+        ]
 
-    scores = np.zeros((nq, n), dtype=np.int32)
-    q_ends = np.full((nq, n), -1, dtype=np.int32)
-    t_ends = np.full((nq, n), -1, dtype=np.int32)
+    with span("pyopal.scatter"):
+        scores = np.zeros((nq, n), dtype=np.int32)
+        q_ends = np.full((nq, n), -1, dtype=np.int32)
+        t_ends = np.full((nq, n), -1, dtype=np.int32)
 
     dev_idx = [i for i, ok in enumerate(kernel_ok) if ok]
     if dev_idx:
@@ -409,8 +467,9 @@ def search_scores_batch(
             matrix, gap_open, gap_extend, algorithm, with_ends, device,
             safe_pad,
         )
-        for k, i in enumerate(dev_idx):
-            scores[i], q_ends[i], t_ends[i] = s[k], qe[k], te[k]
+        with span("pyopal.scatter"):
+            for k, i in enumerate(dev_idx):
+                scores[i], q_ends[i], t_ends[i] = s[k], qe[k], te[k]
 
     for i in long_idx:
         scores[i], q_ends[i], t_ends[i] = _search_long_kernels(
@@ -450,26 +509,40 @@ def _search_long_kernels(
     Returns the three result planes as numpy arrays in slice-local
     target order, copied back in one transfer.
     """
-    fp = packing.pack_database_slice_flat(database, start, end)
-    flat_t, lengths, bos, cos, los, inv_pos = _flat_device(fp, device)
+    fp, (flat_t, lengths, bos, cos, los, inv_pos) = _packed(
+        database, start, end, device
+    )
     Q = int(query_enc.shape[0])
     if safe_pad and ragged.supports_fine(Q, algorithm, with_ends):
-        profs = ragged.make_profiles_host(
-            [query_enc], matrix, q_pad=ragged.fine_qpad(Q)
-        )
+        q_pad = ragged.fine_qpad(Q)
+        with span("pyopal.profile"):
+            count("profile.misses", 1)  # one query alone: no cache
+            profs = torch.as_tensor(
+                ragged.make_profiles_host([query_enc], matrix, q_pad=q_pad)
+            ).to(device)
+            qlens = torch.tensor([Q], dtype=torch.int32, device=device)
         s, qe, te = ragged.search_flat(
-            torch.as_tensor(profs).to(device),
-            torch.tensor([Q], dtype=torch.int32, device=device),
-            flat_t, lengths, bos, cos, los, int(go), int(ge), algorithm,
-            with_ends, chunk=fp.chunk, safe_pad=True,
+            profs, qlens, flat_t, lengths, bos, cos, los, int(go), int(ge),
+            algorithm, with_ends, chunk=fp.chunk, safe_pad=True,
         )
+        walks = [(Q, ragged.wave_group(q_pad))]
     else:
         s, qe, te = ragged_long.search_flat_long(
             query_enc, matrix, flat_t, lengths, bos, cos, los, int(go),
             int(ge), algorithm, with_ends, chunk=fp.chunk,
         )
-    planes = torch.stack([s.reshape(-1), qe.reshape(-1), te.reshape(-1)])
-    return tuple(planes.index_select(1, inv_pos).cpu().numpy())
+        # one walk a segment, its group size by the segment's rows
+        qseg = ragged_long.QSEG
+        walks = [
+            (min(qseg, Q - r), ragged.wave_group(min(qseg, Q - r)))
+            for r in range(0, Q, qseg)
+        ]
+    _count_cells([Q], fp, walks)
+    with span("pyopal.assemble"):
+        planes = torch.stack(
+            [s.reshape(-1), qe.reshape(-1), te.reshape(-1)]
+        ).index_select(1, inv_pos)
+    return tuple(_copy_back(planes))
 
 
 def search_scores(
@@ -676,9 +749,11 @@ def search(
         algorithm, with_ends=(mode != "score"), device=device,
     )
     if mode == "score":
-        return build_score_results(start, scores)
+        with span("pyopal.results"):
+            return build_score_results(start, scores)
     if mode == "end":
-        return build_end_results(start, scores, q_ends, t_ends)
+        with span("pyopal.results"):
+            return build_end_results(start, scores, q_ends, t_ends)
     # mode == "full": the two-phase reconstruction, T1 and T2 over padded
     # batches of every target
     return _full_results_for(

@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
 from . import sweep
 from .ragged import (
     ALGO_CODES,
@@ -96,6 +97,7 @@ def make_profiles_q8_host(queries_enc, matrix, groups, lanes=128) -> tuple:
     return profs, qv, maxq
 
 
+@spanned("pyopal.launch")
 def search_flat_q8(
     profs,
     qv,

@@ -52,10 +52,13 @@ the reference kernels exactly, including the empty-target values.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..models import ALGORITHMS
+from ..utils.profiling import spanned
 from . import sweep
 
 ALPHA = 32  # profile columns (MAX_ALPHABET_SIZE)
@@ -248,6 +251,7 @@ def check_flat(flat_targets, lengths, bos, cos, los, device):
         raise ValueError("bos/cos/los must be 1-D maps of one length")
 
 
+@spanned("pyopal.launch")
 def search_flat(
     profs,
     qlens,
@@ -453,6 +457,30 @@ def wave_group(rows: int, R: int = WAVE_R) -> int:
     while g < WAVE_MAX_G and g * R < rows:
         g *= 2
     return g
+
+
+def walk_rows(rows: int, G: int) -> int:
+    """Query rows a walk of ``rows`` rows steps through: whole passes of
+    ``G * WAVE_R`` rows, none for an empty walk (``csrc/wave.cuh``:
+    wave_walk)."""
+    return -(-rows // (G * WAVE_R)) * G * WAVE_R
+
+
+def walk_steps(lengths, G: int) -> int:
+    """Steps of one pass of the wavefront walk, summed over target lanes.
+
+    A group of ``G`` threads walks each lane, and the ``32 // G`` lanes of
+    a warp step together: to the warp's longest target, plus the ``G -
+    1`` steps of the wavefront's tail, rounded up to an even count; a
+    warp of empty lanes takes none (``csrc/wave.cuh``: wave_walk).
+    ``lengths`` are a flat pack's lane lengths, in lane order; a launch's
+    lanes start at a multiple of 128, so its warps are the pack's."""
+    per_warp = 32 // G
+    lanes = np.asarray(lengths).reshape(-1, per_warp)
+    # lane by lane: an order faster than max(1) over a short axis
+    longest = functools.reduce(np.maximum, lanes.T)
+    steps = longest[longest > 0].astype(np.int64) + G - 1
+    return int((steps + (steps & 1)).sum()) * per_warp
 
 
 def wave_buffer_rows(q_pad: int, flat_rows: int, n_blocks: int) -> int:

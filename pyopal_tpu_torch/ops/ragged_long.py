@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..models import ALGORITHMS
+from ..utils.profiling import count, span, spanned
 from . import sweep
 from .ragged import (
     ALGO_CODES,
@@ -402,9 +403,11 @@ def _search(segment, query_enc, matrix, flat_targets, lengths, bos, cos,
         raise ValueError("search_flat_long needs a non-empty query")
     n_seg = -(-Q // qseg)
     dev = flat_targets.device
-    prof = torch.as_tensor(
-        make_profiles_host([query_enc], matrix, q_pad=n_seg * qseg)[0]
-    ).to(dev)
+    with span("pyopal.profile"):
+        count("profile.misses", 1)  # one query alone: no cache
+        prof = torch.as_tensor(
+            make_profiles_host([query_enc], matrix, q_pad=n_seg * qseg)[0]
+        ).to(dev)
     n_blocks, _, lanes = lengths.shape
     hb = torch.zeros(flat_targets.shape, dtype=torch.int32, device=dev)
     fb = torch.full(flat_targets.shape, NEG, dtype=torch.int32, device=dev)
@@ -419,6 +422,7 @@ def _search(segment, query_enc, matrix, flat_targets, lengths, bos, cos,
     return scores, qe, te
 
 
+@spanned("pyopal.launch")
 def search_flat_long(
     query_enc,
     matrix,
