@@ -565,6 +565,19 @@ def main():
         ("tier512", 256, [512, 257, 300, 400, 511, 260, 333, 444, 9, 100]),
     ]
     long_seq = next(t for t in seqs if len(t) >= 256)
+
+    def k2_packed(label, args, k2_out):
+        """K2's exact route: the packed walk with H's cap at Q_pad x max
+        |S| equals K2's int32 walk bit for bit, in one launch."""
+        cap = args[0].shape[1] // q8.QB * int(np.abs(S).max())
+        before = q8.launches["q8_packed"]
+        out = q8.search_flat_q8(*args, packed_cap=cap)
+        if q8.launches["q8_packed"] != before + 1:
+            fail(f"K2 packed {label}: not one launch")
+        if not all(torch.equal(a, b) for a, b in zip(out, k2_out)):
+            fail(f"K2 packed {label}: differs from K2's int32 walk")
+        return out
+
     k7_flagged = {}
     k7_args = []  # the last call at gaps 3/1
 
@@ -605,6 +618,9 @@ def main():
                     "q8", q8.search_flat_q8, q8.search_flat_q8_reference,
                     args, f"{label} {algo} ends={ends}")
                 n_checked += 1
+                if algo == "sw" and not ends:  # K2's packed route: K2's
+                    k2_packed(label, args, out)
+                    n_checked += 1
         k2_args = args
         n_checked += k7_cases(label, profs, qv, maxq, fp)
         if label == "tier512":  # two passes: K2's and K7's pass buffers
@@ -977,7 +993,9 @@ def main():
     single = al.align(queries[0], db, mode="score")
     counts = launch_counts()
     first_seconds = time.perf_counter() - t0
-    if counts != only(ragged=3, q8=2):  # per align_arrays K2 1, K1 1
+    # K2 1 (score mode on the packed walk, end mode on the int32 walk) and
+    # K1 1 per align_arrays, K1 1 per align
+    if counts != only(ragged=3, q8=1, q8_packed=1):
         fail(f"main path launches: {counts}")
     for key in ("scores", "query_ends", "target_ends"):
         arr = res_e[key]
@@ -1042,7 +1060,7 @@ def main():
         single = al.align(queries[0], db, mode="score")
         counts = launch_counts()
         first_seconds = time.perf_counter() - t0
-        if counts != only(ragged=3, q8=2):  # 2 align_arrays, 1 align
+        if counts != only(ragged=3, q8=1, q8_packed=1):  # as above
             fail(f"main path launches: {counts}")
         for key in ("scores", "query_ends", "target_ends"):
             arr = res_e[key]
@@ -1191,7 +1209,7 @@ def main():
     io_s = al.align_arrays(queries, loaded, mode="score")
     io_e = al.align_arrays(queries, loaded, mode="end")
     io_counts = launch_counts()
-    if io_counts != only(ragged=3, q8=2):
+    if io_counts != only(ragged=3, q8=1, q8_packed=1):
         fail(f"I/O path launches: {io_counts}")
     if any(type(r) is not results_mod.ScoreResult for r in io_single):
         fail("the loaded database's align built no C ScoreResult")
@@ -1476,6 +1494,8 @@ def main():
     k7_main_flagged = int((k7[0] == q8.NARROW_CAP).sum())
     if k7_main_flagged < 1:
         fail("K7 flagged no lane on the main path's groups")
+    counted_call("K2 packed 8 groups", only(q8_packed=1),
+                 lambda: k2_packed("main 8 groups", k7_args[:-1], k2))
     x_counts = {k: sum(c[k] for c in new_counts.values()) for k in counters}
     emit({"phase": "no_safe_pad_path", "launches": new_counts,
           "seconds_per_call": new_seconds,
@@ -1989,11 +2009,17 @@ def main():
         "q8_narrow": (
             k7_in, (fpw, fps512),
             sum(len(enc7[i]) for g in groups[:8] for i in g), (False,)),
+        "q8_packed": (
+            k7_in, (fpw, fps512),
+            sum(len(enc7[i]) for g in groups[:8] for i in g), (False,)),
     }
     for key, (base, (fpk, fps_k), query_rows, modes) in new_shapes.items():
-        extra = (True,) if key == "q8_narrow" else (False,)  # narrow, safe_pad
+        extra = {  # narrow (K7), packed_cap (K2's packed route), safe_pad
+            "q8_narrow": (True,),
+            "q8_packed": (False, tier * int(np.abs(S).max())),
+        }.get(key, (False,))
         kfn, pfn = ((q8.search_flat_q8, q8.search_flat_q8_reference)
-                    if key == "q8_narrow" else
+                    if key.startswith("q8") else
                     (ragged.search_flat, ragged.search_flat_reference))
         errs = []
         for ends in modes:
@@ -2009,7 +2035,7 @@ def main():
         out_bytes = 3 * 4 * out[0].numel()
         in_bytes = (fpk.flat_targets.size + fpk.lengths.nbytes
                     + sum(t.numel() * t.element_size() for t in base))
-        narrow = key == "q8_narrow"
+        narrow = key.startswith("q8")  # the packed walk
         results[key] = {
             "ms": ms, "plain_ms": plain_seconds[key] * 1e3,
             "max_abs_err": max(errs), "cells": cells,
@@ -2023,7 +2049,8 @@ def main():
                 "R": ragged.WAVE_R},
         }
         if narrow:  # K2 on the same groups, the same run
-            results[key]["k2_ms"] = time_launches(kfn, args[:-1], 3)
+            results[key]["k2_ms"] = time_launches(
+                kfn, args[:-len(extra)], 3)
         if key in walked_rows:
             walked = walked_rows[key] * residues
             results[key].update(walked_cells=walked,
@@ -2454,6 +2481,8 @@ def main():
          "pyopal_tpu/ops/pallas_ragged.py:732"),
         ("q8_narrow", "pyopal_tpu_torch/csrc/q8_narrow.cu",
          "pyopal_tpu/ops/pallas_q8.py:180"),
+        ("q8_packed", "pyopal_tpu_torch/csrc/q8_narrow.cu",
+         "pyopal_tpu/ops/pallas_q8.py:138"),
         ("traceback_dirs", "pyopal_tpu_torch/csrc/traceback_dirs.cu",
          "pyopal_tpu/ops/traceback.py:53"),
         ("traceback_walk", "pyopal_tpu_torch/csrc/traceback_walk.cu",

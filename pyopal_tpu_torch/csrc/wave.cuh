@@ -1,9 +1,10 @@
 // The wavefront walk of K1 (ragged.cu), K2 (q8.cu), K3 (ragged_long.cu),
 // K4 (ragged_v1.cu), K5 (ragged_strip.cu), K6 (group.cu) and, in its
-// packed 16-bit form, K7 (q8_narrow.cu): a group of G threads per (query,
-// target) with the query rows in registers.  K2's queries are the (group,
-// slot) pairs of its row-interleaved profiles (a profile row stride of 8 x
-// 32 ints); K7's are pairs of slots, two queries in each register.
+// packed 16-bit form, K7 and K2's exact route (q8_narrow.cu): a group of
+// G threads per (query, target) with the query rows in registers.  K2's
+// queries are the (group, slot) pairs of its row-interleaved profiles (a
+// profile row stride of 8 x 32 ints); the packed walk's are pairs of
+// slots, two queries in each register.
 //
 // Why: one thread per target (the kernels' first design) gives a
 // single-query launch ~12K threads for a 12,071-sequence database, under
@@ -46,20 +47,20 @@
 //   max(G_diag + (s + go), E), H = max(H, F[, 0]), G = H - go, and sw's
 //   running best: six instructions.
 //
-// NARROW (K7, sw score only, H capped at 255): every int of the row
-// arrays, of the values handed down and of the tracker holds two int16
-// halves, the low one of slot 2p of a q8 group and the high one of slot
-// 2p + 1 (wave_stage packs their profile rows), walked over the same
-// target column.  The shuffles move both halves unchanged; the arithmetic
-// is Hopper's packed DPX (__viaddmax_s16x2, __vimax_s16x2_relu,
-// __viaddmin_s16x2) and a packed max, with the floor WAVE_FLOOR for
-// -infinity and G = min(H, 255) - go folded into one add-min.  A cell is
-// E = max(E - ge, G_left), F = max(F - ge, G_up), H = max(G_diag + (s +
-// go), E), H = max(H, F, 0), G = min(H - go, 255 - go) and best =
-// max(best, G): six instructions for two cells.  The tracker holds G (its
-// start, -go, is the score 0), the buffer between passes holds G and F of
-// the pass's last row, and no value leaves int16 (the ranges are in
-// q8_narrow.cu).
+// NARROW (q8_narrow.cu: K7 and K2's exact route, sw score only, H capped
+// at a cap C, 255 for K7): every int of the row arrays, of the values
+// handed down and of the tracker holds two int16 halves, the low one of
+// slot 2p of a q8 group and the high one of slot 2p + 1 (wave_stage packs
+// their profile rows), walked over the same target column.  The shuffles
+// move both halves unchanged; the arithmetic is Hopper's packed DPX
+// (__viaddmax_s16x2, __vimax_s16x2_relu, __viaddmin_s16x2) and a packed
+// max, with the floor WAVE_FLOOR for -infinity and G = min(H, C) - go
+// folded into one add-min.  A cell is E = max(E - ge, G_left), F = max(F
+// - ge, G_up), H = max(G_diag + (s + go), E), H = max(H, F, 0), G = min(H
+// - go, C - go) and best = max(best, G): six instructions for two cells.
+// The tracker holds G (its start, -go, is the score 0), the buffer
+// between passes holds G and F of the pass's last row, and no value
+// leaves int16 (the ranges are in q8_narrow.cu).
 //
 // Trackers keep dp.cuh's rule: max score, then the lowest target column,
 // then the lowest query row.  Each thread tracks its own rows over its
@@ -108,7 +109,9 @@ __device__ __forceinline__ int wave_max_relu(int a, int b) {
 // NARROW: two int16 halves in one int (low: slot 2p, high: slot 2p + 1)
 constexpr int WAVE_FLOOR = -512;  // E and F's -infinity: any <= -(go + ge)
 constexpr int WAVE_CLAMP = 1024;  // profile entries are clamped into +-this
-constexpr int WAVE_CAP = 255;     // H is held at most this (NARROW_CAP)
+constexpr int WAVE_CAP = 255;     // K7 holds H at most this (NARROW_CAP)
+// the largest cap: H + s + go stays within int16 (q8_narrow.cu)
+constexpr int WAVE_CAP_MAX = 32767 - WAVE_CLAMP;
 __device__ __forceinline__ int wave_pack(int lo, int hi) {
   return (int)(((unsigned)lo & 0xffffu) | ((unsigned)hi << 16));
 }
@@ -194,7 +197,7 @@ struct WaveThread {
   int lb, lbj, cap;               // hw/ov last row, nw terminal (owner)
   int oc, oci;                    // ov last column
   int rq;                         // PAD_ROWS: row Q - 1 in its thread
-  int ngo2, gcap2, nge2, floor2;  // NARROW: -go, 255 - go, -ge, the floor
+  int ngo2, gcap2, nge2, floor2;  // NARROW: -go, cap - go, -ge, the floor
 
   __device__ __forceinline__ void load_tiles(int col) {
     const bool in = col < len;
@@ -400,9 +403,10 @@ __device__ __forceinline__ void wave_pass(WaveThread& w, int nsteps,
 // PAD_TAIL (K4, K6): with PAD_ROWS, rows may end inside a thread (K6's
 //   profiles have a multiple of 8 rows): the pass that holds row Q - 1
 //   may then also be the final pass, which masks the rows past the walk.
-// NARROW (K7): the packed walk of two queries, profile rows prof and prof
-//   + ALPHA ints (sw score only, gaps in [0, 255]); trk.best is the packed
-//   tracker of G = min(H, 255) - go, -go in both halves on entry.
+// NARROW (q8_narrow.cu): the packed walk of two queries, profile rows
+//   prof and prof + ALPHA ints (sw score only, gaps >= 0 with go + ge <=
+//   -WAVE_FLOOR, cap in [0, WAVE_CAP_MAX]); trk.best is the packed
+//   tracker of G = min(H, cap) - go, -go in both halves on entry.
 // All G threads of a group return the same tracker.
 template <int ALG, bool ENDS, bool SEG_OUT, int PSTRIDE = ALPHA,
           bool PAD_ROWS = false, bool PAD_TAIL = false, bool NARROW = false>
@@ -410,7 +414,7 @@ __device__ __forceinline__ void wave_walk(
     int4* sp, const int* __restrict__ prof, int prof_rows, int row0,
     int rows, int Q, const uint8_t* __restrict__ tgt, int stride, int len,
     const int* hb_in, const int* fb_in, int* pb_h, int* pb_f, int G, int go,
-    int ge, Track& trk) {
+    int ge, Track& trk, int cap = WAVE_CAP) {
   constexpr int R = WAVE_R;
   constexpr bool kPenCol = ALG == NW || ALG == HW;
   static_assert(!NARROW || (ALG == SW && !ENDS && !SEG_OUT && !PAD_ROWS),
@@ -447,7 +451,7 @@ __device__ __forceinline__ void wave_walk(
   w.oci = INT_MAX;
   if (NARROW) {
     w.ngo2 = wave_splat(-go);
-    w.gcap2 = wave_splat(WAVE_CAP - go);
+    w.gcap2 = wave_splat(cap - go);
     w.nge2 = wave_splat(-ge);
     w.floor2 = wave_splat(WAVE_FLOOR);
   }

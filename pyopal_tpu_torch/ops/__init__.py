@@ -5,8 +5,9 @@
 - `ragged` — kernels K1 (``csrc/ragged.cu``), K4 (``csrc/ragged_v1.cu``)
   and K5 (``csrc/ragged_strip.cu``), routed by ``safe_pad`` and mode as
   the reference routes them, and their plain versions.
-- `q8`     — kernels K2 (``csrc/q8.cu``) and K7, the narrow pass
-  (``csrc/q8_narrow.cu``), and their plain versions.
+- `q8`     — kernels K2 (``csrc/q8.cu``) and the packed walk
+  (``csrc/q8_narrow.cu``), which serves K7, the narrow pass, and K2's
+  exact route in sw score mode, and their plain versions.
 - `ragged_long` — kernel K3 (``csrc/ragged_long.cu``), the segmented
   search of one long query, and its plain version.
 - `group`  — kernel K6 (``csrc/group.cu``), one query over a stacked

@@ -21,7 +21,10 @@ Routing is decided before any launch and never after a failure:
   (``safe_pad``: the pad symbol 31 scores `PAD_SCORE`), queries of
   1..4096 residues go by query-tier cohort: full groups of 8 same-tier
   queries (tiers 64-512) to the q8 kernel (K2), the rest to the ragged
-  kernel (K1), as `plan_tier_launches` splits them in both packages.  A
+  kernel (K1), as `plan_tier_launches` splits them in both packages.  In
+  sw score mode a q8 group takes K2 on the packed walk of K7 (two slots
+  in int16 halves) wherever `_packed_exact_domain` proves that no
+  intermediate leaves int16, and K2's int32 walk otherwise.  A
   longer query goes alone: one K1 launch at its fine tier where
   `ragged.supports_fine` admits it, else the segmented kernel (K3,
   `ragged_long`), one launch per 2048 rows.
@@ -284,11 +287,13 @@ def _packed(database, start, end, device, **kw):
 
 def _search_batch_kernels(
     database, start, end, queries_enc, matrix, go, ge, algorithm,
-    with_ends, device, safe_pad,
+    with_ends, device, safe_pad, m_abs,
 ):
     """Kernel route: one launch per query-tier cohort (q8 launches of
-    up to `_Q8_LAUNCH_GROUPS` groups, then a ragged launch for the
-    leftovers; without ``safe_pad`` the ragged launch alone)."""
+    up to `_Q8_LAUNCH_GROUPS` groups, on the packed walk where
+    `_packed_exact_domain` holds for the matrix's largest absolute entry
+    ``m_abs``, then a ragged launch for the leftovers; without
+    ``safe_pad`` the ragged launch alone)."""
     nq = len(queries_enc)
     n = max(end - start, 0)
     launches = []  # (device tensor, row -> query-index list)
@@ -305,15 +310,35 @@ def _search_batch_kernels(
                 profs, qv, maxq = _profiles_q8(
                     queries_enc, matrix, gs, lanes_q8, device
                 )
+                q_pad = profs.shape[1] // q8.QB
+                cap = (
+                    q_pad * m_abs
+                    if _packed_exact_domain(
+                        algorithm, with_ends, go, ge, m_abs, q_pad
+                    )
+                    else None
+                )
                 s, qe, te = q8.search_flat_q8(
                     profs, qv, maxq, flat_t, lengths, bos, cos, los,
                     int(go), int(ge), algorithm, with_ends,
-                    chunk=fpw.chunk,
+                    chunk=fpw.chunk, packed_cap=cap,
                 )
-                # an empty slot of a partial group walks nothing
-                qlens = [len(queries_enc[qi]) for g in gs for qi in g]
-                G = ragged.wave_group(profs.shape[1] // q8.QB)
-                _count_cells(qlens, fpw, [(q, G) for q in qlens])
+                # slot lengths; an empty slot of a partial group is 0
+                qlens = [
+                    len(queries_enc[g[k]]) if k < len(g) else 0
+                    for g in gs for k in range(q8.QB)
+                ]
+                G = ragged.wave_group(q_pad)
+                if cap is None:  # each slot walks its own rows
+                    count("q8.groups_wide", len(gs))
+                    walks = [(q, G) for q in qlens]
+                else:  # both slots of a pair walk the longer one's rows
+                    count("q8.groups_packed", len(gs))
+                    walks = [
+                        (max(qlens[k], qlens[k + 1]), G)
+                        for k in range(0, len(qlens), 2) for _ in range(2)
+                    ]
+                _count_cells(qlens, fpw, walks)
                 launches.append((
                     _assemble_flat_q8(inv_pos, s, qe, te, with_ends),
                     [qi for g in gs for qi in g],
@@ -408,6 +433,24 @@ def _fp32_exact_domain(
     return worst < _FP32_EXACT_BOUND
 
 
+def _packed_exact_domain(algorithm, with_ends, gap_open, gap_extend, m_abs,
+                         q_pad) -> bool:
+    """Whether a q8 launch at tier ``q_pad`` may take the packed walk
+    (``csrc/q8_narrow.cu``) with H's cap at ``q_pad * m_abs`` and return
+    K2's exact scores (static; no device work): sw score mode, matrix
+    entries within the walk's staging clamp (``m_abs``, the largest
+    absolute entry), and gaps and cap within `ragged.packed_fits`: both
+    gaps >= 0 within the floor's reach, every intermediate in int16.  No
+    sw cell of a ``q_pad``-row walk exceeds ``q_pad * m_abs``, so the cap
+    never binds."""
+    return (
+        algorithm == "sw"
+        and not with_ends
+        and m_abs <= ragged.WAVE_CLAMP
+        and ragged.packed_fits(int(gap_open), int(gap_extend), q_pad * m_abs)
+    )
+
+
 def search_scores_batch(
     database,
     start: int,
@@ -435,8 +478,9 @@ def search_scores_batch(
 
     queries_enc = [np.asarray(q, dtype=np.uint8) for q in queries_enc]
     with span("pyopal.route"):
+        m_abs = int(np.abs(matrix).max(initial=0))
         use_kernels = (
-            np.abs(matrix).max(initial=0) <= 256
+            m_abs <= 256
             and _fp32_exact_domain(
                 database, start, end, queries_enc, matrix, gap_open,
                 gap_extend,
@@ -465,7 +509,7 @@ def search_scores_batch(
         s, qe, te = _search_batch_kernels(
             database, start, end, [queries_enc[i] for i in dev_idx],
             matrix, gap_open, gap_extend, algorithm, with_ends, device,
-            safe_pad,
+            safe_pad, m_abs,
         )
         with span("pyopal.scatter"):
             for k, i in enumerate(dev_idx):

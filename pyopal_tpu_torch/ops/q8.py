@@ -3,10 +3,13 @@
 Port of ``pyopal_tpu/ops/pallas_q8.py``: `search_flat_q8` (l.467) with
 the `_q8_kernel` kernel (l.138) and `make_profiles_q8_host` (l.109).
 The kernel runs in two forms, each hand-written CUDA C++: the exact
-int32 pass, ``narrow=False`` (K2, ``csrc/q8.cu``), and the saturating sw
-score-only pass, ``narrow=True`` (K7, ``csrc/q8_narrow.cu``; l.180-202,
-310-313), whose scores are min(sw score, `NARROW_CAP`): a lane that reads
-`NARROW_CAP` is flagged for an exact rescore, every other lane is exact.
+int32 pass, ``narrow=False`` (K2, ``csrc/q8.cu``), and the packed sw
+score-only walk (``csrc/q8_narrow.cu``).  The packed walk serves K7, the
+saturating pass of ``narrow=True`` (l.180-202, 310-313), whose scores are
+min(sw score, `NARROW_CAP`): a lane that reads `NARROW_CAP` is flagged
+for an exact rescore, every other lane is exact.  It also serves K2's
+exact route, ``packed_cap``: H's cap raised to a bound no cell of the
+call reaches, so that the scores are K2's.
 The interface is the reference's: groups of `QB` same-tier queries with
 row-interleaved profiles, per-slot lengths ``qv`` and per-group row
 bounds ``maxq``, over 256- or 512-lane packs, giving ``(n_groups,
@@ -15,16 +18,17 @@ q8 assembly are unchanged.  On the GPU the group of 8 has no hardware
 meaning: K2 walks each (group, slot) as one query of K1's wavefront walk
 (``csrc/wave.cuh``: a group of threads per (group, slot, target lane),
 its rows in registers, the walk ending at the slot's own length); K7
-walks each pair of slots (2p, 2p + 1) as one walk of the same kind in
-its packed 16-bit form, two queries in each register (Hopper's s16x2
-DPX instructions), to the pair's longer length.
+and K2's exact route walk each pair of slots (2p, 2p + 1) as one walk
+of the same kind in its packed 16-bit form, two queries in each register
+(Hopper's s16x2 DPX instructions), to the pair's longer length.
 
 As in `pyopal_tpu_torch.ops.ragged`: `search_flat_q8` launches the
 kernel for CUDA tensors (counted in `launches` by kernel) and takes the
 plain version `search_flat_q8_reference` (K2's, or with ``narrow``
 K7's) for CPU tensors only (counted in `plain_calls`).
-`wave_reference` and `narrow_wave_reference` are K2 and K7 as their
-kernels compute them, for the tests.
+`wave_reference` and `narrow_wave_reference` are K2 and the packed
+walk (K7, or K2's exact route with its cap) as their kernels compute
+them, for the tests.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from .ragged import (
     WAVE_CAP,
     WAVE_R,
     check_flat,
+    packed_fits,
     profile_qpad,
     wave_buffer,
     wave_finish,
@@ -55,9 +60,10 @@ MAX_QPAD = 1024
 #: the narrow pass's clamp on H (reference ``NARROW_CAP``)
 NARROW_CAP = WAVE_CAP
 
-#: kernel launches made by `search_flat_q8` on CUDA tensors, by kernel
-#: (K2, and K7 with ``narrow``)
-launches = {"q8": 0, "q8_narrow": 0}
+#: kernel launches made by `search_flat_q8` on CUDA tensors, by route
+#: (K2's int32 walk, K7 with ``narrow``, K2's exact packed walk with
+#: ``packed_cap``)
+launches = {"q8": 0, "q8_narrow": 0, "q8_packed": 0}
 #: plain-version runs made by the wrapper on CPU tensors, by kernel
 plain_calls = dict.fromkeys(launches, 0)
 
@@ -113,14 +119,15 @@ def search_flat_q8(
     with_ends,
     chunk=64,
     narrow=False,
+    packed_cap=None,
 ):
     """All query groups x the whole flat-packed database.
 
     One kernel launch, or several where one launch's pass buffer (at
     tiers beyond one pass of the walk: 512 and 1024) would exceed
     `ragged.SCRATCH_BYTES` (`ragged.wave_buffer`); each adds one to
-    ``launches["q8"]`` (K2) or, with ``narrow``, ``launches["q8_narrow"]``
-    (K7).
+    ``launches["q8"]`` (K2), with ``narrow`` to ``launches["q8_narrow"]``
+    (K7), with ``packed_cap`` to ``launches["q8_packed"]``.
 
     ``qv`` must be constant along lanes (as `make_profiles_q8_host`
     builds it): both versions read each slot's length at lane 0.
@@ -131,6 +138,13 @@ def search_flat_q8(
     ``narrow=True`` (sw score-only, gaps in ``[0, NARROW_CAP]``, else
     `ValueError` as in the reference) runs the saturating pass: scores
     are min(sw score, `NARROW_CAP`), both end planes -1.
+
+    ``packed_cap`` (sw score-only, `ragged.packed_fits` of the gaps and
+    the cap, else `ValueError`) runs K2 on the packed walk with H capped
+    at ``packed_cap``: min(sw score, ``packed_cap``) in each slot, so
+    K2's scores where the caller proves that no cell exceeds the cap
+    (`engine._packed_exact_domain`); both end planes -1, as K2 writes
+    them in score mode.  The plain version is K2's.
     """
     dev = profs.device
     check_flat(flat_targets, lengths, bos, cos, los, dev)
@@ -162,7 +176,18 @@ def search_flat_q8(
             "narrow=True supports only sw score-only with gap "
             f"parameters in [0, {NARROW_CAP}]"
         )
-    name = "q8_narrow" if narrow else "q8"
+    if packed_cap is not None and (
+        narrow
+        or algorithm != "sw"
+        or with_ends
+        or not packed_fits(int(go), int(ge), int(packed_cap))
+    ):
+        raise ValueError(
+            "packed_cap supports only sw score-only with gaps and a cap "
+            "that keep every intermediate in int16 (ragged.packed_fits)"
+        )
+    cap = NARROW_CAP if narrow else packed_cap
+    name = "q8_narrow" if narrow else "q8" if cap is None else "q8_packed"
     if dev.type == "cpu":
         plain_calls[name] += 1
         return search_flat_q8_reference(
@@ -180,17 +205,19 @@ def search_flat_q8(
         torch.empty((n_g, n_blocks, QB, lanes), dtype=torch.int32, device=dev)
         for _ in range(3)
     ]
-    # the pass buffer, as K1's: per slot (K2) or per pair of slots (K7)
-    chunks, pbuf = wave_buffer(n_g, QB // 2 if narrow else QB, q_pad,
+    # the pass buffer, as K1's: per slot (K2) or per pair of slots (the
+    # packed walk)
+    chunks, pbuf = wave_buffer(n_g, QB if cap is None else QB // 2, q_pad,
                                flat_targets, n_blocks)
     for g0, g1, n0, n1 in chunks:  # one stream: launches reuse the buffer
         _cuda.launch(
-            name,
+            "q8" if cap is None else "q8_narrow",
             profs[g0:g1], qv[g0:g1], flat_targets, lengths, row_off,
             *(o[g0:g1] for o in outs), pbuf,
             g1 - g0, q_pad, n_blocks, lanes, n0, n1 - n0, int(go), int(ge),
             ALGO_CODES[algorithm], int(bool(with_ends)),
             flat_targets.shape[0], wave_group(q_pad),
+            *(() if cap is None else (int(cap),)),
         )
         launches[name] += 1
     return tuple(outs)
@@ -211,13 +238,15 @@ def search_flat_q8_reference(
     with_ends,
     chunk=64,
     narrow=False,
+    packed_cap=None,
 ):
     """Plain PyTorch version of `search_flat_q8` (same inputs, outputs).
 
     With ``narrow`` (K7's plain version): the sw score-only scores,
-    clamped at `NARROW_CAP`, with -1 in both end planes.
+    clamped at `NARROW_CAP`, with -1 in both end planes.  ``packed_cap``
+    changes nothing: K2's packed route returns K2's scores.
     """
-    del maxq, cos, los
+    del maxq, cos, los, packed_cap
     n_g = profs.shape[0]
     q_pad = profs.shape[1] // QB
     n_blocks, _, lanes = lengths.shape
@@ -282,25 +311,29 @@ def wave_reference(profs, qv, maxq, flat_targets, lengths, bos, cos, los,
 
 
 def narrow_wave_reference(profs, qv, maxq, flat_targets, lengths, bos, cos,
-                          los, go, ge, chunk=64, G=None, R=WAVE_R):
-    """K7 as its CUDA kernel computes it: the packed walk of
+                          los, go, ge, chunk=64, G=None, R=WAVE_R,
+                          cap=NARROW_CAP):
+    """The packed walk as its CUDA kernel computes it, with H capped at
+    ``cap``: K7 at `NARROW_CAP`, K2's exact route (``packed_cap``) at a
+    bound no cell reaches.  The packed walk of
     ``csrc/wave.cuh`` for every (group, pair of slots, target lane), run
     here as `ragged.wave_walk_reference` with ``narrow`` on each half
     (slot ``2p`` the low one, ``2p + 1`` the high one; s16x2 arithmetic
     never carries between halves, as no intermediate leaves int16, which
     the walk asserts).  Both halves walk rows ``[0, max(Q_2p, Q_2p+1))``:
     the shorter slot's rows past its length are its profile's pad rows,
-    an empty slot's every row.  The trackers of G = min(H, 255) - go are
+    an empty slot's every row.  The trackers of G = min(H, cap) - go are
     packed into one int32 as the kernel holds them, then unpacked
     (sign-extended) with go added back.  ``G`` threads of ``R`` rows
     (``G``: the kernel's `ragged.wave_group` of the tier by default).
-    Same inputs and outputs as `search_flat_q8` with ``narrow`` (sw,
-    score only, gaps in ``[0, NARROW_CAP]``); CPU tensors only.  The tests
-    hold it against the JAX package; no call path uses it."""
+    Same inputs and outputs as `search_flat_q8` with ``narrow`` or
+    ``packed_cap`` (sw, score only, gaps and cap within
+    `ragged.packed_fits`); CPU tensors only.  The tests hold it against
+    the JAX package and K2's plain version; no call path uses it."""
     del maxq, cos, los
-    go, ge = int(go), int(ge)
-    if not (0 <= go <= NARROW_CAP and 0 <= ge <= NARROW_CAP):
-        raise ValueError(f"gaps must lie in [0, {NARROW_CAP}]")
+    go, ge, cap = int(go), int(ge), int(cap)
+    if not packed_fits(go, ge, cap):
+        raise ValueError(f"gaps {go}, {ge} and cap {cap} leave int16")
     n_g = profs.shape[0]
     q_pad = profs.shape[1] // QB
     n_blocks, _, lanes = lengths.shape
@@ -318,7 +351,7 @@ def narrow_wave_reference(profs, qv, maxq, flat_targets, lengths, bos, cos,
     trk = wave_walk_reference(
         profs.reshape(-1), q_pad, torch.arange(n_g * QB).repeat_interleave(N),
         0, rows, rows, tgt, lens, buf, buf, buf.clone(), buf.clone(), go, ge,
-        "sw", False, trk, G, R, False, interleave=QB, narrow=True,
+        "sw", False, trk, G, R, False, interleave=QB, narrow=True, h_cap=cap,
     )
     half = trk[0].reshape(n_g * QB // 2, 2, N)
     packed = (half[:, 0] & 0xFFFF) | ((half[:, 1] & 0xFFFF) << 16)

@@ -436,17 +436,34 @@ def search_flat_strip_reference(
 WAVE_R = 16
 #: threads per (query, target) of the walk, at most (WAVE_MAX_G)
 WAVE_MAX_G = 16
-#: K7's packed walk (``csrc/wave.cuh``, NARROW): E and F's floor in place
-#: of -infinity, the clamp of profile entries, and H's cap
+#: the packed walk (``csrc/wave.cuh``, NARROW; K7 and K2's exact route):
+#: E and F's floor in place of -infinity, the clamp of profile entries,
+#: and K7's cap on H
 WAVE_FLOOR = -512
 WAVE_CLAMP = 1024
 WAVE_CAP = 255
-#: the range of each int16 intermediate of the packed walk at gaps in
-#: [0, `WAVE_CAP`] (``csrc/q8_narrow.cu``): s + go, E and F before and
-#: after a gap, G_diag + s + go, H before the cap and H - go
-NARROW_RANGES = {"s + go": (-1024, 1279), "E, F": (-767, 255),
-                 "G_diag + s + go": (-1279, 1534), "H": (0, 1534),
-                 "H - go": (-255, 1534)}
+
+
+def packed_ranges(go: int, ge: int, cap: int) -> dict:
+    """The range of each int16 intermediate of the packed walk at gaps
+    ``go``, ``ge`` >= 0 with H capped at ``cap`` (``csrc/q8_narrow.cu``):
+    s + go, E and F before and after a gap, G_diag + s + go, H before the
+    cap, H - go, and G = min(H, cap) - go."""
+    return {"s + go": (go - WAVE_CLAMP, go + WAVE_CLAMP),
+            "E, F": (WAVE_FLOOR - ge, cap - go),
+            "G_diag + s + go": (-WAVE_CLAMP, cap + WAVE_CLAMP),
+            "H": (0, cap + WAVE_CLAMP),
+            "H - go": (-go, cap + WAVE_CLAMP - go),
+            "G": (-go, cap - go)}
+
+
+def packed_fits(go: int, ge: int, cap: int) -> bool:
+    """Whether the packed walk takes gaps ``go``, ``ge`` and H's cap
+    ``cap``: both gaps >= 0 and within the floor's reach (``go + ge <=
+    -WAVE_FLOOR``), and every range of `packed_ranges` inside int16."""
+    return (go >= 0 and ge >= 0 and go + ge <= -WAVE_FLOOR and cap >= 0
+            and all(-(2**15) <= lo and hi < 2**15
+                    for lo, hi in packed_ranges(go, ge, cap).values()))
 
 
 def wave_group(rows: int, R: int = WAVE_R) -> int:
@@ -523,7 +540,8 @@ def _wave_first(a, b):
 def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
                         tgt, lens, hb_in, fb_in, pbuf_h, pbuf_f, go, ge,
                         algorithm, with_ends, trk, G, R, seg_out,
-                        interleave=1, pad_rows=False, narrow=False):
+                        interleave=1, pad_rows=False, narrow=False,
+                        h_cap=WAVE_CAP):
     """CPU emulation of ``csrc/wave.cuh``'s `wave_walk` over N walks.
 
     It mirrors the kernel: passes of ``G * R`` rows; within a pass the
@@ -540,12 +558,13 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
     them, and row ``Q - 1`` is read in whichever pass and thread hold it;
     where ``rows`` is not a multiple of ``R`` (PAD_TAIL) the final pass
     masks the rows past the walk, also when it holds row ``Q - 1``.
-    With ``narrow`` (the packed walk of K7, sw score-only, each walk one
-    half of a register) E and F start from `WAVE_FLOOR`, profile entries
-    are clamped into ``[-WAVE_CLAMP, WAVE_CLAMP]``, ``G = min(H,
-    WAVE_CAP) - go``, the tracker and the buffer hold G (``trk``'s best
-    must then be ``-go``), and every intermediate is asserted to lie in
-    its range of `NARROW_RANGES`, inside int16.
+    With ``narrow`` (the packed walk, sw score-only, each walk one half
+    of a register) E and F start from `WAVE_FLOOR`, profile entries are
+    clamped into ``[-WAVE_CLAMP, WAVE_CLAMP]``, ``G = min(H, h_cap) -
+    go`` (``h_cap``: `WAVE_CAP` for K7, a bound no cell reaches for K2's
+    exact route), the tracker and the buffer hold G (``trk``'s best must
+    then be ``-go``), and every intermediate is asserted to lie in its
+    range of `packed_ranges`, inside int16.
     Vectorized over walks and threads in torch (int64).
 
     Arguments (N walks, T columns):
@@ -576,8 +595,9 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
                           and not pad_rows)
     go, ge = int(go), int(ge)
     FLOOR = WAVE_FLOOR if narrow else NEG  # E and F's -infinity
-    ranges = dict(NARROW_RANGES, G=(-go, WAVE_CAP - go))
-    assert all(-(2**15) <= lo <= hi < 2**15 for lo, hi in ranges.values())
+    if narrow:
+        assert packed_fits(go, ge, h_cap)
+        ranges = packed_ranges(go, ge, h_cap)
 
     def in16(x, what):  # narrow: an intermediate in its range
         lo, hi = ranges[what]
@@ -688,7 +708,7 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
                 if sw:
                     h.clamp_(min=0)
                 gd = Gv[:, r]
-                gup = Gn[:, r] = (h.clamp(max=WAVE_CAP) if narrow else h) - go
+                gup = Gn[:, r] = (h.clamp(max=h_cap) if narrow else h) - go
             if narrow:  # every intermediate of the packed cell
                 diag = torch.cat([gdiag[:, None], Gv[:, :-1]], 1) + pv
                 hpre = torch.maximum(torch.maximum(diag, En), Fr).clamp(min=0)

@@ -475,6 +475,108 @@ def test_q8_narrow_split_by_scratch_budget_matches_plain(dev, monkeypatch):
     assert want > 2 and q8.launches["q8_narrow"] == before + want
 
 
+@pytest.mark.parametrize("tie_heavy", [False, True])
+@pytest.mark.parametrize("tier", sorted(Q8_TIERS))
+def test_q8_packed_route_equals_k2(dev, tier, tie_heavy):
+    """K2's exact route on the packed walk (H's cap at Q_pad x max |S|,
+    as the engine launches it) against K2's int32 walk and the plain
+    version, bit for bit, at tiers 64 to 512 (one pass of G = 4, 8, 16
+    threads, then two passes through the pair's buffer), a short last
+    group (an empty slot in a pair, a pair of empty slots), random and
+    repeated-motif targets; one launch each."""
+    rng = np.random.default_rng(tier)
+    qls = Q8_TIERS[tier]
+    if tie_heavy:
+        seqs, motif = _motif_targets(rng, 300)
+        queries = [np.resize(motif, n).astype(np.uint8) for n in qls]
+    else:
+        seqs = [rng.integers(0, 20, n).astype(np.uint8)
+                for n in LENGTHS * 30]
+        queries = None
+    args = _q8_args(dev, qls, "sw", False, seqs, queries)
+    cap = tier * int(np.abs(S).max())
+    before = dict(q8.launches)
+    out = q8.search_flat_q8(*args, packed_cap=cap)
+    _equal(out, q8.search_flat_q8(*args))
+    _equal(out, q8.search_flat_q8_reference(*args))
+    before["q8"] += 1
+    before["q8_packed"] += 1
+    assert q8.launches == before
+
+
+@pytest.mark.parametrize("tier, scale", [(64, 33), (256, 8), (512, 4)])
+def test_q8_packed_route_at_the_largest_admitted_cap(dev, tier, scale):
+    """BLOSUM50 scaled so that Q_pad x max |S| is the largest cap the
+    engine admits at the tier (31,680 at 64 rows, 30,720 at 256 and
+    512), with queries that are stretches of targets (scores in the
+    thousands): the packed walk equals K2's int32 walk."""
+    from pyopal_tpu_torch.ops import engine
+
+    big = S * scale
+    m_abs = int(np.abs(big).max())
+    assert engine._packed_exact_domain("sw", False, 3, 1, m_abs, tier)
+    rng = np.random.default_rng(scale)
+    seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in LENGTHS * 30]
+    seqs[8] = rng.integers(0, 20, 600).astype(np.uint8)
+    qls = [tier - k for k in range(10)]
+    queries = [seqs[8][:n].copy() for n in qls]
+    fp = packing.pack_sequences_flat(seqs, lanes=512)
+    groups = q8.plan_groups(qls)
+    arrays = q8.make_profiles_q8_host(queries, big, groups, lanes=512)
+    args = (*(torch.from_numpy(a).to(dev) for a in arrays),
+            *_flat(fp, dev), 3, 1, "sw", False, fp.chunk)
+    out = q8.search_flat_q8(*args, packed_cap=tier * m_abs)
+    _equal(out, q8.search_flat_q8(*args))
+    assert int(out[0].max()) > 300 * scale
+
+
+def test_q8_packed_split_by_scratch_budget_matches_k2(dev, monkeypatch):
+    """A budget of one group and 128 lanes a launch for the packed walk's
+    pass buffer at the 512 tier: the launches it makes, and K2's
+    scores."""
+    rng = np.random.default_rng(5)
+    seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in LENGTHS * 30]
+    args = _q8_args(dev, Q8_TIERS[512], "sw", False, seqs)
+    unit_rows = q8.QB // 2 * ragged.wave_buffer_rows(
+        512, args[3].shape[0], args[4].shape[0])
+    assert unit_rows > 0
+    want = q8.search_flat_q8(*args)
+    monkeypatch.setattr(ragged, "SCRATCH_BYTES", 8 * unit_rows * 128)
+    before = q8.launches["q8_packed"]
+    _equal(q8.search_flat_q8(*args, packed_cap=512 * 15), want)
+    n = args[0].shape[0] * -(-args[4].numel() // 128)
+    assert n > 2 and q8.launches["q8_packed"] == before + n
+
+
+@pytest.mark.parametrize("mode", ["score", "end"])
+def test_engine_routes_q8_groups_by_mode(dev, mode):
+    """Through `Aligner.align_arrays` on the card (BLOSUM50 3/1): 14
+    queries of the 256 tier are two q8 groups, one launch on the packed
+    walk in sw score mode and on K2's int32 walk in end mode, with the
+    same scores; nw takes K2 in either mode."""
+    import pyopal_tpu_torch as pt
+
+    rng = np.random.default_rng(14)
+    letters = "ARNDCQEGHILKMFPSTWYV"
+    db = pt.Database(["".join(rng.choice(list(letters), int(n)))
+                      for n in rng.integers(1, 400, 500)])
+    queries = ["".join(rng.choice(list(letters), int(n)))
+               for n in rng.integers(129, 257, 14)]
+    al = pt.Aligner(device="cuda")
+    before = dict(q8.launches)
+    got = al.align_arrays(queries, db, mode=mode)
+    route = "q8_packed" if mode == "score" else "q8"
+    before[route] += 1
+    assert q8.launches == before
+    other = al.align_arrays(queries, db, mode="end" if mode == "score"
+                            else "score")
+    np.testing.assert_array_equal(got["scores"], other["scores"])
+    before = dict(q8.launches)
+    al.align_arrays(queries, db, mode=mode, algorithm="nw")
+    before["q8"] += 1
+    assert q8.launches == before
+
+
 def _group_args(dev, seed, n_blocks=2, Q=13):
     """A K6 group: blocks of 128 lanes at t_pad 512 with the edge lengths
     and zero-length lanes, and a query of ``Q`` residues (13: 3 pad

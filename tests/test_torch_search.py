@@ -386,3 +386,79 @@ def test_streams_and_pickling():
     futures = [al.align_async(q, db, mode="end") for q in queries]
     assert [f.result() for f in futures] == batch
     assert [al.align(q, db, mode="end") for q in queries] == batch
+
+
+@pytest.mark.parametrize("args, want", [
+    (("sw", False, 3, 1, 15, 64), True),  # BLOSUM50 3/1, tiers 64-512
+    (("sw", False, 3, 1, 15, 128), True),
+    (("sw", False, 3, 1, 15, 256), True),
+    (("sw", False, 3, 1, 15, 512), True),
+    (("sw", True, 3, 1, 15, 256), False),  # end mode
+    (("nw", False, 3, 1, 15, 256), False),
+    (("hw", False, 3, 1, 15, 256), False),
+    (("ov", False, 3, 1, 15, 256), False),
+    (("sw", False, 3, 1, 1025, 16), False),  # an entry past the clamp
+    (("sw", False, 3, 1, 495, 64), True),  # cap 31,680: H + s + go 32,704
+    (("sw", False, 3, 1, 496, 64), False),  # cap 31,744: past int16
+    (("sw", False, 3, 1, 250, 128), False),  # a tier past the bound
+    (("sw", False, 500, 12, 15, 256), True),  # go + ge = 512: the floor
+    (("sw", False, 500, 13, 15, 256), False),
+    (("sw", False, -1, 2, 15, 256), False),
+    (("sw", False, 3, -1, 15, 256), False),
+])
+def test_packed_exact_domain_edges(args, want):
+    """The static predicate of K2's packed route: (algorithm, with_ends,
+    go, ge, max |S|, Q_pad)."""
+    assert engine._packed_exact_domain(*args) is want
+
+
+def _q8_fuzz_batch(seed):
+    """`_case(seed)`'s alphabet, matrix and gaps, with 24 targets of the
+    fuzz lengths and 15 queries of the 128 tier (a full q8 group and one
+    of 7 slots), of lengths fixed across seeds so that the reference
+    compiles its search once for seeds of one alphabet size."""
+    letters, m, go, ge, algo, mode, _, _ = _case(seed)
+    rng = random.Random(seed ^ 0x0A8)
+    alpha = letters[: max(len(letters) - 1, 1)]
+    targets = ["".join(rng.choices(alpha, k=k))
+               for k in [0, 1, 2, 17, 63, 64, 65, 130] * 3]
+    queries = ["".join(rng.choices(alpha, k=65 + 4 * i)) for i in range(15)]
+    return letters, m, go, ge, algo, mode, targets, queries
+
+
+@pytest.mark.parametrize("seed, packed", [
+    (0, True),  # max |S| 17: cap 2,176
+    (24, True),  # max |S| 235: cap 30,080
+    (9, False),  # max |S| 248: cap 31,744, one past int16's reach
+    (11, False),  # max |S| 249, gaps 11/7
+])
+def test_q8_groups_take_the_packed_walk_in_sw_score_mode(seed, packed):
+    """On seeded fuzz configurations: sw score and end mode equal
+    `pyopal_tpu`'s, and the counters show both q8 groups on the packed
+    walk in sw score mode where Q_pad x max |S| + 1,024 stays within
+    int16, on K2's int32 walk in end mode, past that bound and in the
+    case's own algorithm when it is not sw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyopal_tpu_torch.utils import profiling
+
+    letters, m, go, ge, algo, mode, targets, queries = _q8_fuzz_batch(seed)
+    assert len(letters) == 24
+    assert (128 * int(np.abs(m).max()) <= 31743) is packed
+    ref_al, ref_db, al, db = _both(letters, m, go, ge, targets)
+    ref = ref_al.align_arrays(queries, ref_db, mode="end", algorithm="sw")
+    calls = [("sw", "score"), ("sw", "end")]
+    calls += [(algo, mode)] if algo != "sw" else []
+    for a, md in calls:
+        profiling.reset_counters()
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = al.align_arrays(queries, db, mode=md, algorithm=a)
+        counted = profiling.counters()
+        if a == "sw":
+            for key in got:
+                np.testing.assert_array_equal(got[key], ref[key],
+                                              err_msg=key)
+        walk = ("q8.groups_packed" if packed and (a, md) == ("sw", "score")
+                else "q8.groups_wide")
+        assert {k: v for k, v in counted.items() if k.startswith("q8.")} == {
+            walk: 2}

@@ -174,6 +174,7 @@ def _hand_counts(db, queries, with_ends):
         ("cells.needed", "cells.walked", "copyback.bytes"), 0
     )
     launches = {}
+    groups_by_walk = {}
 
     def add(fp, qlens, walks, copied):
         out["cells.needed"] += sum(qlens) * fp.total_cells
@@ -185,12 +186,23 @@ def _hand_counts(db, queries, with_ends):
         for k in range(0, len(groups), engine._Q8_LAUNCH_GROUPS):
             gs = groups[k : k + engine._Q8_LAUNCH_GROUPS]
             fp = packing.pack_database_slice_flat(db, 0, n, lanes=lanes)
-            # a partial group's empty slots walk nothing, but come back
+            # slot lengths: a partial group's empty slots are 0 and come
+            # back all the same
             slots = len(gs) * q8.QB
-            qlens = [len(kern[i]) for g in gs for i in g]
+            qlens = [len(kern[g[s]]) if s < len(g) else 0
+                     for g in gs for s in range(q8.QB)]
             G = ragged.wave_group(tier)
-            add(fp, qlens, [(q, G) for q in qlens], slots * planes)
-            launches["plain_calls.q8"] = launches.get("plain_calls.q8", 0) + 1
+            if with_ends:  # K2's int32 walk: each slot to its own length
+                route, walk = "q8", "q8.groups_wide"
+                walks = [(q, G) for q in qlens]
+            else:  # sw score at 3/1: the packed walk, pairs of slots
+                route, walk = "q8_packed", "q8.groups_packed"
+                walks = [(max(qlens[s], qlens[s + 1]), G)
+                         for s in range(0, slots, 2) for _ in range(2)]
+            add(fp, qlens, walks, slots * planes)
+            name = f"plain_calls.{route}"
+            launches[name] = launches.get(name, 0) + 1
+            groups_by_walk[walk] = groups_by_walk.get(walk, 0) + len(gs)
         if v2:
             fp = packing.pack_database_slice_flat(db, 0, n)
             qlens = [len(kern[i]) for i in v2]
@@ -218,6 +230,7 @@ def _hand_counts(db, queries, with_ends):
         add(fp, [Q], walks, 3)  # the long path copies all three planes
         launches[name] = launches.get(name, 0) + k
     out.update(launches)
+    out.update(groups_by_walk)
     return out
 
 
@@ -232,7 +245,7 @@ def test_cells_and_bytes_equal_hand_counts(db, aligner, monkeypatch, batch,
     want = _hand_counts(db, queries, mode != "score")
     assert {k: v for k, v in counted.items() if k in want} == want
     assert not any(
-        k.startswith(("launches.", "plain_calls.")) and k not in want
+        k.startswith(("launches.", "plain_calls.", "q8.")) and k not in want
         for k in counted
     )
     assert counted["cells.needed"] < counted["cells.walked"]
