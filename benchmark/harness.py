@@ -10,7 +10,11 @@ that returns a number, or None where it finds nothing to read.
 
 The timed path is the public API of ``pyopal_tpu_torch``, called from a
 client's side in a closed loop with one client: the traffic names the
-`Aligner` method and its options.  Set-up makes the database and every
+`Aligner` method and its options, or a function of the package by its
+dotted path (``"api": "parallel.align_arrays_sharded"``), which is given
+the configuration's scoring as keywords and, where the traffic names a
+mesh builder (``"mesh": "parallel.device_mesh"``), a mesh of the cell's
+``chips`` built once in set-up.  Set-up makes the database and every
 query from the seed, builds the `Database`, and warms up every call
 shape of the traffic with queries of their own; the window then calls
 the API until ``--seconds`` have passed, each call with queries no
@@ -129,12 +133,42 @@ class Run:
         return sum(c[3] for c in self.calls)
 
 
-def _call_fn(aligner, db, traffic):
-    method = getattr(aligner, traffic["api"])
+def package_function(pt, dotted: str):
+    """The function of the package ``pt`` at ``dotted``, a path below it
+    (``"parallel.align_arrays_sharded"``)."""
+    module, _, attr = dotted.rpartition(".")
+    try:
+        fn = getattr(importlib.import_module(f"{pt.__name__}.{module}"), attr)
+    except (ImportError, AttributeError):
+        fn = None
+    if not callable(fn):
+        raise Failure(2, f"{pt.__name__} has no function {dotted!r}")
+    return fn
+
+
+def _call_fn(pt, db, traffic, scoring, dev, chips):
+    """The timed call: an `Aligner` method with the configuration's
+    scoring, or a function of the package given it as keywords, with a
+    mesh of ``chips`` shards where the traffic names a mesh builder."""
     options = traffic.get("options", {})
+    if "." in traffic["api"]:
+        fn = package_function(pt, traffic["api"])
+        options = dict(
+            options, scoring_matrix=scoring["matrix"],
+            gap_open=scoring["gap_open"], gap_extend=scoring["gap_extend"],
+        )
+        if "mesh" in traffic:
+            build = package_function(pt, traffic["mesh"])
+            options["mesh"] = build(chips, device=dev.type)
+    else:
+        aligner = pt.Aligner(
+            scoring["matrix"], scoring["gap_open"], scoring["gap_extend"],
+            device=dev,
+        )
+        fn = getattr(aligner, traffic["api"])
     if traffic.get("one_query"):
-        return lambda call: method(call.letters[0], db, **options)
-    return lambda call: method(call.letters, db, **options)
+        return lambda call: fn(call.letters[0], db, **options)
+    return lambda call: fn(call.letters, db, **options)
 
 
 def _card():
@@ -146,7 +180,7 @@ def _card():
         ).stdout.strip()
     except (OSError, subprocess.SubprocessError):
         out = ""
-    return out.splitlines()[0] if out else "not read"
+    return " | ".join(out.splitlines()) if out else "not read"
 
 
 def forbidden_modules():
@@ -197,12 +231,8 @@ def run_cell(root, workload, seed, seconds, traced, *, t_process=None,
     t = time.perf_counter()
     db = pt.Database(seqs)
     del seqs
-    aligner = pt.Aligner(
-        scoring["matrix"], scoring["gap_open"], scoring["gap_extend"],
-        device=dev,
-    )
+    call_fn = _call_fn(pt, db, traffic, scoring, dev, chips)
     split["database_s"] = time.perf_counter() - t
-    call_fn = _call_fn(aligner, db, traffic)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     warm = generate.QueryStream(
@@ -285,19 +315,24 @@ def run_cell(root, workload, seed, seconds, traced, *, t_process=None,
         kept.append(last)
     if profiler is not None:
         t = time.perf_counter()
-        run.trace = tracing.Summary(profiler.events(), tracing.span_names())
+        run.trace = tracing.Summary(
+            profiler.events(), tracing.span_names(), chips
+        )
         del profiler
         split["trace_read_s"] = time.perf_counter() - t
 
-    memory_peak = (
-        torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    # the fullest of the cell's cards
+    memory_peaks = (
+        [torch.cuda.max_memory_allocated(i)
+         for i in range(min(chips, torch.cuda.device_count()))]
+        if dev.type == "cuda" else [0]
     )
     found = forbidden_modules()
     if found:
         raise Failure(5, "modules loaded in this process: " + ", ".join(found))
     card = _card() if dev.type == "cuda" else "cpu"
 
-    del db, aligner, call_fn
+    del db, call_fn
     gc.unfreeze()
     gc.collect()
     if dev.type == "cuda":
@@ -335,13 +370,16 @@ def run_cell(root, workload, seed, seconds, traced, *, t_process=None,
                 torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
             ),
             "count": chips,
-            "memory_peak_bytes": int(memory_peak),
+            "memory_peak_bytes": int(max(memory_peaks)),
         },
         "card": card,
+        "cards": {"memory_peak_bytes": memory_peaks},
     }
     if run.trace is not None:
         result["device"]["busy_s"] = run.trace.busy_s
         result["device"]["window_s"] = run.trace.window_s
+        result["cards"]["busy_s"] = run.trace.card_busy_s
+        result["cards"]["kernel_s"] = run.trace.card_kernel_s
         result["breakdown"] = {
             "device_ops": tracing.top(run.trace.device_ops),
             "idle_gaps": tracing.top(run.trace.idle_gaps),

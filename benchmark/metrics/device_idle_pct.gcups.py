@@ -1,5 +1,6 @@
-"""Share of the traced window in which no kernel and no copy ran on the
-card, in percent."""
+"""Share of the traced window in which no kernel and no copy ran, card
+by card, in percent: 100 x (1 - the cards' summed busy time / (cards x
+window)); a card that ran nothing is idle all through."""
 
 
 def read(run):

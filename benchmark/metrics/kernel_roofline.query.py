@@ -1,6 +1,7 @@
-"""The least time the card could take for the window's cell updates
+"""The least time one card could take for the window's cell updates
 (`benchmark.peaks.bound_seconds`) as a share of the device time of all
-kernels in the traced window, in percent."""
+kernels in the traced window, summed over the cards, in percent: the
+same work reads the same whatever the number of cards that did it."""
 
 from benchmark import peaks
 

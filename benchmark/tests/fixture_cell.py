@@ -38,7 +38,7 @@ def tiny_database(count=120, median=60, clip=(30, 160), seed=3):
 
 def make_cell(tmp: Path, *, config="sprot12071-blosum50", api="align_arrays",
               per_call=8, lengths=(40,), one_query=False, check=None,
-              database=None, name="fixture.cell"):
+              database=None, name="fixture.cell", chips=1, mesh=None):
     """Write the fixture files; returns ``(root, data_dir, name)``."""
     root = Path(tmp) / "checkout"
     data = Path(tmp) / "data"
@@ -58,6 +58,8 @@ def make_cell(tmp: Path, *, config="sprot12071-blosum50", api="align_arrays",
     }
     if one_query:
         traffic["one_query"] = True
+    if mesh:
+        traffic["mesh"] = mesh
     (data / "traffic" / "fixture_mix.json").write_text(json.dumps(traffic))
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     bench["configs"] = [
@@ -66,7 +68,7 @@ def make_cell(tmp: Path, *, config="sprot12071-blosum50", api="align_arrays",
     ]
     bench["workloads"] = [
         {"name": name, "config": "tiny", "traffic": "fixture_mix",
-         "chips": 1, "why": "fixture"}
+         "chips": chips, "why": "fixture"}
     ]
     latency = {"query_p50_ms", "query_p95_ms"}
     for m in bench["end_to_end"]:

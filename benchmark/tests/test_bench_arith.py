@@ -54,16 +54,16 @@ def test_percentiles_over_all_calls():
 def events():
     ms = 1_000_000
     return [
-        ("window", False, 0, 100 * ms),
-        ("call", False, 0, 40 * ms),
-        ("engine", False, 5 * ms, 35 * ms),
-        ("client", False, 40 * ms, 50 * ms),
-        ("call", False, 50 * ms, 100 * ms),
-        ("aten::add", False, 51 * ms, 52 * ms),
-        ("pyopal::ragged_kernel<0, false>(int)", True, 10 * ms, 30 * ms),
-        ("Memcpy DtoH (Device -> Pageable)", True, 30 * ms, 32 * ms),
-        ("void k(int)", True, 60 * ms, 90 * ms),
-        ("outside", True, 120 * ms, 130 * ms),
+        ("window", False, 0, 100 * ms, 0),
+        ("call", False, 0, 40 * ms, 0),
+        ("engine", False, 5 * ms, 35 * ms, 0),
+        ("client", False, 40 * ms, 50 * ms, 0),
+        ("call", False, 50 * ms, 100 * ms, 0),
+        ("aten::add", False, 51 * ms, 52 * ms, 0),
+        ("pyopal::ragged_kernel<0, false>(int)", True, 10 * ms, 30 * ms, 0),
+        ("Memcpy DtoH (Device -> Pageable)", True, 30 * ms, 32 * ms, 0),
+        ("void k(int)", True, 60 * ms, 90 * ms, 0),
+        ("outside", True, 120 * ms, 130 * ms, 0),
     ]
 
 

@@ -1,4 +1,5 @@
-"""One short run of each cell on the card (skips without one)."""
+"""One short run of each cell on the card (skips without one, or
+without as many cards as the cell asks for)."""
 
 import json
 import subprocess
@@ -18,6 +19,10 @@ def test_cell_runs_on_the_card(cell):
 
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; torch sees none")
+    chips = {w["name"]: w["chips"] for w in BENCH["workloads"]}[cell]
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"the cell needs {chips} cards; torch sees "
+                    f"{torch.cuda.device_count()}")
     out = subprocess.run(
         [sys.executable, "benchmark/run.py", "--workload", cell, "--seed",
          "2147483699", "--seconds", "3", "--trace", "0"],

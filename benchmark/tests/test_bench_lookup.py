@@ -57,7 +57,9 @@ def test_names_units_and_keys():
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
         assert set(m.get("workloads", CELLS)) <= set(CELLS)
     for w in BENCH["workloads"]:
-        assert len(w["why"]) <= 200 and w["chips"] == 1
+        assert len(w["why"]) <= 200 and w["chips"] in (1, 4)
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4)
     assert all(m["bound"] <= 0.25 for m in BENCH["end_to_end"])
     assert len(json.dumps(BENCH)) < 64 << 10
 

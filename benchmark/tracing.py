@@ -38,6 +38,9 @@ LAYER_SPANS = [
     ("pyopal_tpu_torch.ops.engine", "_assemble_flat", "assemble"),
     ("pyopal_tpu_torch.ops.engine", "_assemble_flat_q8", "assemble"),
     ("pyopal_tpu_torch.ops.engine", "build_score_results", "results"),
+    ("pyopal_tpu_torch.parallel.sharded_flat", "sharded_search_flat", "sharded"),
+    ("pyopal_tpu_torch.parallel.sharded_flat", "pack_flat_sharded", "pack"),
+    ("pyopal_tpu_torch.parallel.sharded_flat", "_gather_host", "gather"),
 ]
 
 
@@ -98,14 +101,18 @@ class Profiler:
         return False
 
     def events(self):
-        """``(name, is_device, start_ns, end_ns)`` of every event."""
+        """``(name, is_device, start_ns, end_ns, card)`` of every event;
+        ``card`` is a device event's card index, 0 for the host's."""
         out = []
         for e in self._prof.profiler.kineto_results.events():
             dev = e.device_type() != torch.autograd.DeviceType.CPU
             if dev and e.is_user_annotation():
                 continue
             start = int(e.start_ns())
-            out.append((e.name(), dev, start, start + int(e.duration_ns())))
+            card = max(int(e.device_index()), 0) if dev else 0
+            out.append(
+                (e.name(), dev, start, start + int(e.duration_ns()), card)
+            )
         return out
 
 
@@ -166,22 +173,40 @@ def is_kernel(name: str) -> bool:
 
 
 class Summary:
-    """What the readers take from a traced window (times in seconds)."""
+    """What the readers take from a traced window (times in seconds).
 
-    def __init__(self, events, span_names):
+    Busy and kernel time are kept card by card, over the cell's
+    ``chips`` cards (more where the trace shows more), a card that ran
+    nothing idle all through: ``card_busy_s`` and ``card_kernel_s``;
+    ``busy_s`` is the mean card's busy time and ``kernel_s`` the sum of
+    the cards' kernel times.  The calls' busy time and the idle gaps
+    take the union of all cards, the host's view: time in which no card
+    works.  On one card the two views are one.
+    """
+
+    def __init__(self, events, span_names, chips=1):
         windows = [e for e in events if not e[1] and e[0] == WINDOW]
         if not windows:
             raise ValueError("the trace holds no window span")
         w0, w1 = windows[0][2], windows[0][3]
         device = [e for e in events if e[1] and e[3] > w0 and e[2] < w1]
-        clip = [(max(a, w0), min(b, w1)) for _, _, a, b in device]
+        clip = [(max(a, w0), min(b, w1)) for _, _, a, b, _ in device]
         busy = Busy(clip)
-        kernels = Busy([iv for e, iv in zip(device, clip) if is_kernel(e[0])])
+        cards = max([chips] + [e[4] + 1 for e in device])
+        busy_ns, kernel_ns = [], []
+        for c in range(cards):
+            on = [(e, iv) for e, iv in zip(device, clip) if e[4] == c]
+            busy_ns.append(Busy([iv for _, iv in on]).within(w0, w1))
+            kernel_ns.append(
+                Busy([iv for e, iv in on if is_kernel(e[0])]).within(w0, w1)
+            )
         self.window_s = (w1 - w0) / 1e9
-        self.busy_s = busy.within(w0, w1) / 1e9
-        self.kernel_s = kernels.within(w0, w1) / 1e9
+        self.card_busy_s = [x / 1e9 for x in busy_ns]
+        self.card_kernel_s = [x / 1e9 for x in kernel_ns]
+        self.busy_s = sum(busy_ns) / 1e9 / cards
+        self.kernel_s = sum(kernel_ns) / 1e9
         self.device_ops = {}
-        for name, _, a, b in device:
+        for name, _, a, b, _ in device:
             name = short_name(name)
             self.device_ops[name] = self.device_ops.get(name, 0.0) + (b - a) / 1e9
         spans = sorted(
@@ -190,8 +215,8 @@ class Summary:
         )
         calls = [e for e in spans if e[0] == CALL]
         self.calls = len(calls)
-        self.call_s = [(b - a) / 1e9 for _, _, a, b in calls]
-        self.call_busy_s = [busy.within(a, b) / 1e9 for _, _, a, b in calls]
+        self.call_s = [(b - a) / 1e9 for _, _, a, b, _ in calls]
+        self.call_busy_s = [busy.within(a, b) / 1e9 for _, _, a, b, _ in calls]
         self.idle_gaps = _idle_by_span(busy, spans, w0, w1)
 
 
@@ -199,7 +224,7 @@ def _idle_by_span(busy, spans, w0, w1):
     """Device-idle time inside the window, by the innermost benchmark
     span open on the host meanwhile (`OUTSIDE` where none is)."""
     cuts = {w0, w1}
-    for _, _, a, b in spans:
+    for _, _, a, b, _ in spans:
         cuts.add(min(max(a, w0), w1))
         cuts.add(min(max(b, w0), w1))
     for a, b in busy.iv:
