@@ -8,8 +8,10 @@ stream), puts the reference computed with every ``H`` saturated at
 ``--cap`` (an unsigned 8-bit pass without Opal's escalation to wider
 scores, which is also what the program's narrow q8 pass returns) in the
 program's place, and prints the numbers the check compares, with the
-exact reference's scores summarised beside them.  Benchmark runs never
-run it.
+exact reference's scores summarised beside them.  It reads only cells
+that run ``sw`` in score mode, and refuses any other: the cap is a
+control of the Smith-Waterman scores alone.  Benchmark runs never run
+it.
 """
 
 import os
@@ -30,10 +32,14 @@ from benchmark import check, generate, harness, reference  # noqa: E402
 
 def control_reading(spec, seed, device, cap):
     traffic, scoring = spec.traffic, spec.config["scoring"]
+    algorithm, mode = spec.judged()
+    if (algorithm, mode) != ("sw", "score"):
+        raise harness.Failure(
+            2, f"{spec.cell['name']} runs {algorithm} in {mode} mode: "
+            "the cap control reads sw score-mode cells only"
+        )
     data = harness.Data(spec.config, seed, device)
-    stream = generate.QueryStream(
-        traffic, data.lengths, data.codes, seed, generate.STREAM_WINDOW
-    )
+    stream = data.queries(traffic, seed, generate.STREAM_WINDOW)
     kept = [(stream.call(k), None) for k in range(int(traffic["check"]["calls"]))]
     top = []
 
@@ -70,11 +76,15 @@ def main():
     if not torch.cuda.is_available():
         print("torch sees no CUDA device", file=sys.stderr)
         return 3
-    spec = harness.Spec(Path(ROOT), args.workload)
-    for seed in args.seeds:
-        out = control_reading(spec, seed, torch.device("cuda"), args.cap)
-        out["workload"] = args.workload
-        print(json.dumps(out), flush=True)
+    try:
+        spec = harness.Spec(Path(ROOT), args.workload)
+        for seed in args.seeds:
+            out = control_reading(spec, seed, torch.device("cuda"), args.cap)
+            out["workload"] = args.workload
+            print(json.dumps(out), flush=True)
+    except harness.Failure as exc:
+        print(f"no control: {exc}", file=sys.stderr, flush=True)
+        return exc.code
     return 0
 
 

@@ -1,10 +1,11 @@
 """Databases and queries made from the seed.
 
-A configuration fixes its database's length multiset: the same for
-every seed.  The seed picks only the residues (uniform over the 20
-amino acids, drawn on the device in one call) and, for queries, where
-in the database each query's homologous window starts and which of its
-residues are substituted.  Every call of a run gets queries of its own:
+A configuration fixes its database's length multiset and its letters
+(``scoring.letters``, the rows of its table): the same for every seed.
+The seed picks only the residues (uniform over the letters, drawn on
+the device in one call) and, for queries, where in the database each
+query's homologous window starts and which of its residues are
+substituted.  Every call of a run gets queries of its own:
 calls are numbered, and each number has its own generator.
 
 The log-normal draw is a frozen copy of ``bench.py``'s ``build_database``
@@ -18,9 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-#: the 20 amino acids, in the order of the configurations' matrix rows
+#: the 20 amino acids, in the order of the protein configurations'
+#: matrix rows: the letters where a caller names none
 LETTERS = b"ARNDCQEGHILKMFPSTWYV"
-_ASCII = np.frombuffer(LETTERS, dtype=np.uint8)
 
 #: generator streams of one run: warm-up calls, timed calls, the check's
 #: sample of targets and calls
@@ -83,13 +84,20 @@ def _lognormal_fit(n, residues, sigma, lo, hi, seed):
     return lengths
 
 
-def database_codes(total: int, seed: int, device) -> np.ndarray:
-    """``total`` residue codes (0..19) as one host array, drawn on
-    ``device`` by one generator call."""
+def ascii_letters(letters=LETTERS) -> np.ndarray:
+    """The letters (`str` or `bytes`) as a uint8 array: code -> ASCII."""
+    if isinstance(letters, str):
+        letters = letters.encode("ascii")
+    return np.frombuffer(letters, dtype=np.uint8)
+
+
+def database_codes(total: int, seed: int, device, letters=LETTERS) -> np.ndarray:
+    """``total`` residue codes (0 to ``len(letters) - 1``) as one host
+    array, drawn on ``device`` by one generator call."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed_key(seed))
     codes = torch.randint(
-        0, len(LETTERS), (int(total),), generator=gen, device=device,
+        0, len(letters), (int(total),), generator=gen, device=device,
         dtype=torch.uint8,
     )
     return codes.cpu().numpy()
@@ -100,10 +108,11 @@ def offsets_of(lengths: np.ndarray) -> np.ndarray:
     return np.concatenate(([0], np.cumsum(lengths)[:-1])).astype(np.int64)
 
 
-def ascii_sequences(codes: np.ndarray, lengths: np.ndarray) -> list:
+def ascii_sequences(codes: np.ndarray, lengths: np.ndarray,
+                    letters=LETTERS) -> list:
     """The database as letters: one read-only view per target."""
-    letters = _ASCII[codes]
-    return np.split(letters, np.cumsum(lengths)[:-1])
+    text = ascii_letters(letters)[codes]
+    return np.split(text, np.cumsum(lengths)[:-1])
 
 
 def query_lengths(traffic: dict, db_lengths: np.ndarray) -> list:
@@ -125,11 +134,13 @@ class Call:
 
     __slots__ = ("index", "codes", "letters", "starts", "cells", "db_bytes")
 
-    def __init__(self, index, flat, lengths, starts, db_residues):
+    def __init__(self, index, flat, lengths, starts, db_residues,
+                 letters=LETTERS):
         cut = np.cumsum(lengths)[:-1]
         self.index = index
         self.codes = np.split(flat, cut)
-        self.letters = [a.tobytes() for a in np.split(_ASCII[flat], cut)]
+        text = ascii_letters(letters)[flat]
+        self.letters = [a.tobytes() for a in np.split(text, cut)]
         self.starts = [int(s) for s in starts]
         self.cells = int(lengths.sum()) * int(db_residues)
         self.db_bytes = int(db_residues)
@@ -141,11 +152,12 @@ class QueryStream:
     Call ``k`` of a stream takes the next ``queries_per_call`` lengths of
     the cycle.  Each query is a window of the concatenated database at a
     random start with a share ``residues.substitution`` of its positions
-    redrawn uniformly: a homolog of the targets it overlaps, as a search
-    query has in a real database.
+    redrawn uniformly over ``letters``: a homolog of the targets it
+    overlaps, as a search query has in a real database.
     """
 
-    def __init__(self, traffic, db_lengths, db_codes, seed, stream):
+    def __init__(self, traffic, db_lengths, db_codes, seed, stream,
+                 letters=LETTERS):
         self.cycle = query_lengths(traffic, db_lengths)
         self.per_call = int(traffic["queries_per_call"])
         self.residues = traffic["residues"]
@@ -155,6 +167,7 @@ class QueryStream:
         self.db_residues = int(db_codes.shape[0])
         self.seed = seed_key(seed)
         self.stream = stream
+        self.letters = letters
 
     def lengths(self, k: int) -> list:
         n = len(self.cycle)
@@ -172,9 +185,9 @@ class QueryStream:
         flat = self.db_codes[at]
         redraw = rng.random(total) < float(self.residues["substitution"])
         flat[redraw] = rng.integers(
-            0, len(LETTERS), int(redraw.sum()), dtype=np.uint8
+            0, len(self.letters), int(redraw.sum()), dtype=np.uint8
         )
-        return Call(k, flat, lens, starts, self.db_residues)
+        return Call(k, flat, lens, starts, self.db_residues, self.letters)
 
     def distinct_shapes(self) -> int:
         """Calls that cover every distinct set of lengths of the cycle."""

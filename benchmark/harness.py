@@ -19,6 +19,16 @@ query from the seed, builds the `Database`, and warms up every call
 shape of the traffic with queries of their own; the window then calls
 the API until ``--seconds`` have passed, each call with queries no
 earlier call had.
+
+The configuration's ``scoring`` decides the program's matrix and
+alphabet.  Where ``scoring.matrix`` names a matrix of the package
+(``"BLOSUM62"``), the program gets that name and the `Database` the
+package's default alphabet.  Where ``scoring.matrix`` is null or left
+out, the program gets ``ScoringMatrix(scoring.table, scoring.letters)``
+and the `Database` ``Alphabet(scoring.letters)``.  Residues are drawn
+over ``scoring.letters`` either way.  The traffic's ``options.algorithm``
+has to be ``scoring.algorithm``, and ``options.mode`` score or end:
+set-up refuses any other cell (`check.judged`).
 """
 
 from __future__ import annotations
@@ -75,6 +85,14 @@ class Spec:
             self.data_dir / "traffic" / f"{self.cell['traffic']}.json"
         )
 
+    def judged(self):
+        """``(algorithm, mode)`` the check holds this cell to; a cell it
+        cannot judge fails set-up (`check.judged`)."""
+        try:
+            return check.judged(self.traffic, self.config["scoring"])
+        except ValueError as exc:
+            raise Failure(2, f"{self.cell['name']}: {exc}") from None
+
     def _applies(self, metric, reported):
         listed = metric.get("workloads")
         if listed is not None:
@@ -100,13 +118,22 @@ class Spec:
 
 
 class Data:
-    """The generated database: codes, lengths and offsets per target."""
+    """The generated database: codes, lengths and offsets per target,
+    over the configuration's letters."""
 
     def __init__(self, config, seed, device):
+        self.letters = config["scoring"]["letters"]
         self.lengths = generate.database_lengths(config["database"])
         self.offsets = generate.offsets_of(self.lengths)
         self.codes = generate.database_codes(
-            int(self.lengths.sum()), seed, device
+            int(self.lengths.sum()), seed, device, self.letters
+        )
+
+    def queries(self, traffic, seed, stream):
+        """The traffic's `generate.QueryStream` ``stream`` on this
+        database."""
+        return generate.QueryStream(
+            traffic, self.lengths, self.codes, seed, stream, self.letters
         )
 
 
@@ -146,7 +173,19 @@ def package_function(pt, dotted: str):
     return fn
 
 
-def _call_fn(pt, db, traffic, scoring, dev, chips):
+def program_scoring(pt, scoring):
+    """``(matrix, alphabet)``: the matrix argument the program takes for
+    the configuration's scoring, its name or a `ScoringMatrix` of its
+    table, and the `Alphabet` of its `Database` (None: the default)."""
+    if isinstance(scoring.get("matrix"), str):
+        return scoring["matrix"], None
+    return (
+        pt.ScoringMatrix(scoring["table"], scoring["letters"]),
+        pt.Alphabet(scoring["letters"]),
+    )
+
+
+def _call_fn(pt, db, traffic, scoring, matrix, dev, chips):
     """The timed call: an `Aligner` method with the configuration's
     scoring, or a function of the package given it as keywords, with a
     mesh of ``chips`` shards where the traffic names a mesh builder."""
@@ -154,7 +193,7 @@ def _call_fn(pt, db, traffic, scoring, dev, chips):
     if "." in traffic["api"]:
         fn = package_function(pt, traffic["api"])
         options = dict(
-            options, scoring_matrix=scoring["matrix"],
+            options, scoring_matrix=matrix,
             gap_open=scoring["gap_open"], gap_extend=scoring["gap_extend"],
         )
         if "mesh" in traffic:
@@ -162,8 +201,7 @@ def _call_fn(pt, db, traffic, scoring, dev, chips):
             options["mesh"] = build(chips, device=dev.type)
     else:
         aligner = pt.Aligner(
-            scoring["matrix"], scoring["gap_open"], scoring["gap_extend"],
-            device=dev,
+            matrix, scoring["gap_open"], scoring["gap_extend"], device=dev,
         )
         fn = getattr(aligner, traffic["api"])
     if traffic.get("one_query"):
@@ -202,6 +240,8 @@ def run_cell(root, workload, seed, seconds, traced, *, t_process=None,
     split = {"imports_s": t_entry - t_process}
     spec = Spec(root, workload, data_dir)
     chips = int(spec.cell["chips"])
+    traffic, scoring = spec.traffic, spec.config["scoring"]
+    _, mode = spec.judged()
     if require_cuda:
         if not torch.cuda.is_available():
             raise Failure(3, "torch sees no CUDA device")
@@ -222,22 +262,20 @@ def run_cell(root, workload, seed, seconds, traced, *, t_process=None,
     t = time.perf_counter()
     torch.zeros(1, device=dev)
     split["device_init_s"] = time.perf_counter() - t
-    traffic, scoring = spec.traffic, spec.config["scoring"]
     t = time.perf_counter()
     data = Data(spec.config, seed, dev)
-    seqs = generate.ascii_sequences(data.codes, data.lengths)
+    seqs = generate.ascii_sequences(data.codes, data.lengths, data.letters)
     split["generate_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    db = pt.Database(seqs)
+    matrix, alphabet = program_scoring(pt, scoring)
+    db = pt.Database(seqs, alphabet=alphabet)
     del seqs
-    call_fn = _call_fn(pt, db, traffic, scoring, dev, chips)
+    call_fn = _call_fn(pt, db, traffic, scoring, matrix, dev, chips)
     split["database_s"] = time.perf_counter() - t
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
-    warm = generate.QueryStream(
-        traffic, data.lengths, data.codes, seed, generate.STREAM_WARMUP
-    )
+    warm = data.queries(traffic, seed, generate.STREAM_WARMUP)
     warm_s = []
     for k in range(warm.distinct_shapes()):
         call = warm.call(k)
@@ -251,9 +289,7 @@ def run_cell(root, workload, seed, seconds, traced, *, t_process=None,
     # queries for as many calls as the card's ceiling could complete, up
     # to PREPARED_RESIDUES; later calls' queries are made in the window
     t = time.perf_counter()
-    stream = generate.QueryStream(
-        traffic, data.lengths, data.codes, seed, generate.STREAM_WINDOW
-    )
+    stream = data.queries(traffic, seed, generate.STREAM_WINDOW)
     probe = stream.call(0)
     least = peaks.bound_seconds(probe.cells, probe.db_bytes)
     per_call = max(1, sum(c.shape[0] for c in probe.codes))
@@ -340,7 +376,8 @@ def run_cell(root, workload, seed, seconds, traced, *, t_process=None,
 
     t = time.perf_counter()
     verdict = check.compare(
-        kept, data, scoring, traffic["check"]["targets"], seed, dev, failed
+        kept, data, scoring, traffic["check"]["targets"], seed, dev, failed,
+        mode=mode,
     )
     check_s = time.perf_counter() - t
 

@@ -14,6 +14,17 @@ from benchmark import generate
 REPO = Path(__file__).resolve().parents[2]
 BENCH = REPO / "benchmark"
 
+#: a nucleotide configuration's scoring: 4 letters, a match/mismatch
+#: table and no matrix of the package by name
+DNA_SCORING = {
+    "algorithm": "hw",
+    "matrix": None,
+    "gap_open": 6,
+    "gap_extend": 2,
+    "letters": "ACGT",
+    "table": [[2 if i == j else -4 for j in range(4)] for i in range(4)],
+}
+
 
 def tiny_database(count=120, median=60, clip=(30, 160), seed=3):
     db = {
@@ -38,8 +49,12 @@ def tiny_database(count=120, median=60, clip=(30, 160), seed=3):
 
 def make_cell(tmp: Path, *, config="sprot12071-blosum50", api="align_arrays",
               per_call=8, lengths=(40,), one_query=False, check=None,
-              database=None, name="fixture.cell", chips=1, mesh=None):
-    """Write the fixture files; returns ``(root, data_dir, name)``."""
+              database=None, name="fixture.cell", chips=1, mesh=None,
+              scoring=None, options=None):
+    """Write the fixture files; returns ``(root, data_dir, name)``.
+
+    ``scoring`` replaces the configuration's scoring (`DNA_SCORING`),
+    ``options`` the traffic's (sw in score mode)."""
     root = Path(tmp) / "checkout"
     data = Path(tmp) / "data"
     (root / "cfg").mkdir(parents=True, exist_ok=True)
@@ -47,10 +62,12 @@ def make_cell(tmp: Path, *, config="sprot12071-blosum50", api="align_arrays",
     shutil.copytree(BENCH / "metrics", data / "metrics", dirs_exist_ok=True)
     cfg = json.loads((BENCH / "configs" / f"{config}.json").read_text())
     cfg["database"] = database or tiny_database()
+    if scoring is not None:
+        cfg["scoring"] = scoring
     (root / "cfg" / "tiny.json").write_text(json.dumps(cfg))
     traffic = {
         "api": api,
-        "options": {"mode": "score", "algorithm": "sw"},
+        "options": options or {"mode": "score", "algorithm": "sw"},
         "queries_per_call": per_call,
         "lengths": {"values": list(lengths)},
         "residues": {"from": "database_window", "substitution": 0.3},
