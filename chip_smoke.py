@@ -9,9 +9,10 @@ Phases (the first failure ends the run with a nonzero exit code):
 
 1. the card: name and power limit from ``nvidia-smi``, torch and CUDA
    versions;
-2. the build: the nine kernels (``pyopal_tpu_torch/csrc/ragged.cu``,
+2. the build: the ten kernels (``pyopal_tpu_torch/csrc/ragged.cu``,
    ``q8.cu``, ``ragged_long.cu``, ``ragged_v1.cu``, ``ragged_strip.cu``,
-   ``group.cu``, ``q8_narrow.cu``, and full mode's ``traceback_dirs.cu``
+   ``group.cu``, ``q8_narrow.cu``, K1's packed route ``ragged_packed.cu``,
+   and full mode's ``traceback_dirs.cu``
    (T1) and ``traceback_walk.cu`` (T2)) compiled with ``nvcc`` for
    ``sm_90a``, in parallel, with each kernel's registers, stack frame
    and spills as ``ptxas`` reports them; beside them the probe
@@ -27,7 +28,9 @@ Phases (the first failure ends the run with a nonzero exit code):
    query tiers, with edge target lengths and a 2500-residue self-hit
    (score > 12000), and calls that a small scratch budget splits into
    several launches (K1, K2, K4-K7: at tiers of several passes, which
-   need their pass buffer); K1 at the fine tiers 4608/5120/6144; K3
+   need their pass buffer); K1's packed route at every K1 case of sw
+   score mode the engine admits, equal to K1's int32 walk; K1 at the
+   fine tiers 4608/5120/6144; K3
    segment by segment (scores, ends, the boundary rows and the trackers
    it hands on) at 32- and 64-row segments, and at 2048 rows (8 passes
    of the walk) for a 6,500-residue query against two 4,000-residue
@@ -123,7 +126,8 @@ Phases (the first failure ends the run with a nonzero exit code):
    wavefront walk's kernels, K1-K6, at their six DPX-fused instructions
    a cell, their plain int32 bound beside it; K7 at 5.5 packed s16x2
    instructions for two cells, with K2's bound and K2's time on the same
-   groups beside it),
+   groups beside it; K1's packed route at 6.5 for two cells, K1's bound
+   and time beside it),
    end-to-end throughput, long-query and sharded call times, and each
    kernel's launches in one ``align_arrays`` and one ``align`` call,
    counted; one 256-aa ``align`` split into K1 (CUDA events around its
@@ -177,6 +181,10 @@ OPS_PER_CELL_WAVE = 6
 #: counts them at the highest of the int32 rate and the s16x2 rates
 #: ``tools/dpx_rate.cu`` measures in this run
 OPS_PER_PAIR_NARROW = 5.5
+#: packed instructions per two cells of K1's packed route
+#: (``csrc/ragged_packed.cu``): K7's 5.5 and the byte permute that builds
+#: a row's pair of profile entries from the two lanes' symbols
+OPS_PER_PAIR_K1_PACKED = OPS_PER_PAIR_NARROW + 1
 #: int32 operations per cell of T1's direction pass (sw), counted from the
 #: recurrence at its least: G = H - go (1, shared by the next column's E
 #: and the next row's F), E = max(G, E - ge) (2), F = max(G, F - ge) (2),
@@ -524,6 +532,25 @@ def main():
         ("tier256", [256, 200, 129], fp128),
         ("tier1024", [1000, 700], fp128),
     ]
+    m_abs = int(np.abs(S).max())
+
+    def k1_packed(label, args, k1_out):
+        """K1's packed route where the engine's int16 bound admits the
+        call (H's cap at min(Q_pad, T_max) x max |S|), whatever its
+        blocks: equal to K1's int32 walk bit for bit, in one launch.
+        Returns the cases checked."""
+        rows = min(args[0].shape[1], int(args[3].max()))
+        if not engine._packed_exact_domain("sw", False, GO, GE, m_abs, rows):
+            return 0
+        cap = rows * m_abs
+        before = ragged.launches["ragged_packed"]
+        out = ragged.search_flat(*args, packed_cap=cap)
+        if ragged.launches["ragged_packed"] != before + 1:
+            fail(f"K1 packed {label}: not one launch")
+        if not all(torch.equal(a, b) for a, b in zip(out, k1_out)):
+            fail(f"K1 packed {label}: differs from K1's int32 walk")
+        return 1
+
     split_cases = []  # (name, module, kernel, plain, args, unit rows, lanes)
     for label, qls, fp in k1_cases:
         queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
@@ -533,10 +560,12 @@ def main():
             for ends in (False, True):
                 args = (profs, qlens, *dev_flat(fp), GO, GE, algo, ends,
                         fp.chunk, True)
-                compare("ragged", ragged.search_flat,
-                        ragged.search_flat_reference, args,
-                        f"{label} {algo} ends={ends}")
+                out, _ = compare("ragged", ragged.search_flat,
+                                 ragged.search_flat_reference, args,
+                                 f"{label} {algo} ends={ends}")
                 n_checked += 1
+                if algo == "sw" and not ends:
+                    n_checked += k1_packed(label, args, out)
         if label == "tier1024":  # several passes: K1's pass buffer
             split_cases.append((
                 "ragged", ragged.search_flat, ragged.search_flat_reference,
@@ -993,9 +1022,9 @@ def main():
     single = al.align(queries[0], db, mode="score")
     counts = launch_counts()
     first_seconds = time.perf_counter() - t0
-    # K2 1 (score mode on the packed walk, end mode on the int32 walk) and
-    # K1 1 per align_arrays, K1 1 per align
-    if counts != only(ragged=3, q8=1, q8_packed=1):
+    # K2 1 and K1 1 per align_arrays, K1 1 per align, each on its packed
+    # walk in score mode and on its int32 walk in end mode
+    if counts != only(ragged=1, ragged_packed=2, q8=1, q8_packed=1):
         fail(f"main path launches: {counts}")
     for key in ("scores", "query_ends", "target_ends"):
         arr = res_e[key]
@@ -1060,7 +1089,8 @@ def main():
         single = al.align(queries[0], db, mode="score")
         counts = launch_counts()
         first_seconds = time.perf_counter() - t0
-        if counts != only(ragged=3, q8=1, q8_packed=1):  # as above
+        if counts != only(ragged=1, ragged_packed=2, q8=1,
+                          q8_packed=1):  # as above
             fail(f"main path launches: {counts}")
         for key in ("scores", "query_ends", "target_ends"):
             arr = res_e[key]
@@ -1082,7 +1112,11 @@ def main():
                      for a, b in ps]
 
         # --- 5b. the long-query path at full size -----------------------------
+        # the 5,000-residue query: K1 at its fine tier, on the packed route
+        # in score mode (min(5,120, 1,827) x 15 lies within int16)
         want_launches = {35000: only(ragged_long=18), 5000: only(ragged=1)}
+        want_packed = {35000: want_launches[35000],
+                       5000: only(ragged_packed=1)}
         zero_counts()
         t0 = time.perf_counter()
         long_res, long_times = {}, {}
@@ -1093,7 +1127,8 @@ def main():
                 long_res[n, mode] = al.align(q, db, mode=mode)
                 long_times[n, mode] = [time.perf_counter() - t1]
                 got = {k: v - before[k] for k, v in launch_counts().items()}
-                if got != want_launches[n]:
+                if got != (want_packed if mode == "score"
+                           else want_launches)[n]:
                     fail(f"{n}-residue align({mode!r}) launches: {got}")
         long_counts = launch_counts()
         long_seconds = time.perf_counter() - t0
@@ -1209,7 +1244,7 @@ def main():
     io_s = al.align_arrays(queries, loaded, mode="score")
     io_e = al.align_arrays(queries, loaded, mode="end")
     io_counts = launch_counts()
-    if io_counts != only(ragged=3, q8=1, q8_packed=1):
+    if io_counts != only(ragged=1, ragged_packed=2, q8=1, q8_packed=1):
         fail(f"I/O path launches: {io_counts}")
     if any(type(r) is not results_mod.ScoreResult for r in io_single):
         fail("the loaded database's align built no C ScoreResult")
@@ -1300,7 +1335,9 @@ def main():
                 idx >= 0]
     sharded_counts = launch_counts()
     sharded_seconds = time.perf_counter() - t0
-    want_sharded = only(ragged=2 * 4, q8=2 * 4, group=4 * len(gpack.groups))
+    # K1 a shard a call: on its packed route in score mode
+    want_sharded = only(ragged=4, ragged_packed=4, q8=2 * 4,
+                        group=4 * len(gpack.groups))
     if sharded_counts != want_sharded:
         fail(f"sharded path launches: {sharded_counts}, want {want_sharded}")
     if not np.array_equal(sh_s["scores"], res_s["scores"]) or any(
@@ -1934,7 +1971,8 @@ def main():
     #: its packed s16x2 form, two cells an instruction (K7)
     walks = {"int32": (OPS_PER_CELL_SW_SCORE, INT32_LANES_PER_SM),
              "wave": (OPS_PER_CELL_WAVE, wave_lanes),
-             "narrow": (OPS_PER_PAIR_NARROW / 2, narrow_rate)}
+             "narrow": (OPS_PER_PAIR_NARROW / 2, narrow_rate),
+             "pair": (OPS_PER_PAIR_K1_PACKED / 2, narrow_rate)}
 
     def bound(cells, n_bytes, walk="wave"):
         """The least time of ``cells`` DP cells of ``walk`` and ``n_bytes``
@@ -1950,6 +1988,8 @@ def main():
             out["int32_bound_ms"] = bound(cells, n_bytes, "int32")["bound_ms"]
         if walk == "narrow":
             out["k2_wave_bound_ms"] = bound(cells, n_bytes)["bound_ms"]
+        if walk == "pair":
+            out["k1_wave_bound_ms"] = bound(cells, n_bytes)["bound_ms"]
         return out
 
     results = {}
@@ -1978,6 +2018,45 @@ def main():
             "bytes": in_bytes + out_bytes,
             **bound(cells, in_bytes + out_bytes),
             # the walk: threads per target, rows per thread
+            "wave": {"G": ragged.wave_group(q_pad), "R": ragged.WAVE_R},
+        }
+        emit({"phase": "kernel_timing", "kernel": key, "mode": "sw score",
+              **results[key], **card})
+
+    # K1's packed route at K1's main shapes (the cohort and the single
+    # query, sw score): held against the plain version, its scores K1's,
+    # timed beside K1 in the same run; its bound counts 6.5 packed
+    # instructions for two cells
+    t_max = int(fp.lengths.max())
+    for key, base, query_rows in (
+            ("ragged_packed", k1_in, sum(len(enc[i]) for i in v2_idx)),
+            ("ragged_packed_single", k1_single, len(enc[0]))):
+        q_pad = base[0].shape[1]
+        cap = engine._ragged_packed_cap("sw", False, GO, GE, m_abs, q_pad,
+                                        t_max, True, base[0].shape[0],
+                                        fp.lengths.size)
+        if cap is None:
+            fail(f"{key}: the engine does not admit the main shape")
+
+        def packed(*a):
+            return ragged.search_flat(*a, packed_cap=cap)
+
+        args = (*base, *dev_flat(fp), GO, GE, "sw", False, fp.chunk, True)
+        out, err = compare(key, packed, ragged.search_flat_reference, args,
+                           "main shape ends=False")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(out, ragged.search_flat(*args))):
+            fail(f"{key}: differs from K1's int32 walk")
+        ms = time_launches(packed, args, 3)
+        cells = query_rows * residues
+        n_bytes = (fp.flat_targets.size + fp.lengths.nbytes + 3 * 4
+                   * out[0].numel() + sum(t.numel() * t.element_size()
+                                          for t in base))
+        results[key] = {
+            "ms": ms, "k1_ms": time_launches(ragged.search_flat, args, 3),
+            "plain_ms": plain_seconds[key] * 1e3, "max_abs_err": err,
+            "cells": cells, "gcups": cells / (ms * 1e-3) / 1e9,
+            "bytes": n_bytes, "cap": cap, **bound(cells, n_bytes, "pair"),
             "wave": {"G": ragged.wave_group(q_pad), "R": ragged.WAVE_R},
         }
         emit({"phase": "kernel_timing", "kernel": key, "mode": "sw score",
@@ -2225,7 +2304,8 @@ def main():
         finally:
             _cuda.launch, engine.build_score_results = real_launch, real_build
         torch.cuda.synchronize()
-        if [e[0] for e in k1_events] != ["ragged"] * n or len(build_s) != n:
+        if ([e[0] for e in k1_events] != ["ragged_packed"] * n
+                or len(build_s) != n):
             fail(f"align split: launches {[e[0] for e in k1_events]} and "
                  f"{len(build_s)} builds in {n} calls")
         k1_s = [a.elapsed_time(b) * 1e-3 for _, a, b in k1_events]
@@ -2483,6 +2563,8 @@ def main():
          "pyopal_tpu/ops/pallas_q8.py:180"),
         ("q8_packed", "pyopal_tpu_torch/csrc/q8_narrow.cu",
          "pyopal_tpu/ops/pallas_q8.py:138"),
+        ("ragged_packed", "pyopal_tpu_torch/csrc/ragged_packed.cu",
+         "pyopal_tpu/ops/pallas_ragged.py:400"),
         ("traceback_dirs", "pyopal_tpu_torch/csrc/traceback_dirs.cu",
          "pyopal_tpu/ops/traceback.py:53"),
         ("traceback_walk", "pyopal_tpu_torch/csrc/traceback_walk.cu",
@@ -2504,7 +2586,8 @@ def main():
             "checked_against_plain": True,
             **{k: v for k, v in r.items()
                if k in ("shape", "wave", "int32_bound_ms",
-                        "k2_wave_bound_ms", "k2_ms")
+                        "k2_wave_bound_ms", "k2_ms", "k1_wave_bound_ms",
+                        "k1_ms")
                or k.startswith("stacked_")},
         })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -62,6 +62,21 @@
 // between passes holds G and F of the pass's last row, and no value
 // leaves int16 (the ranges are in q8_narrow.cu).
 //
+// PAIR (ragged_packed.cu: K1's packed route): the packed walk of one
+// query against two target lanes, the low half lane 2k's and the high
+// half lane 2k + 1's.  The pass's profile is staged as int16 entries
+// [symbol][k][thread][8 rows] (16 KB at G * R = 256), so a thread reads
+// its 16 rows of one symbol as two int4 loads; a column reads both lanes'
+// symbols and builds each row's packed entry with one __byte_perm.  One
+// 16-bit load brings both lanes' bytes of a column (the lanes are
+// adjacent in the flat layout), and the pair of symbols travels down the
+// group as one int.  A pair walks to its longer lane's length; the
+// shorter lane's columns past its own read the pad symbol WAVE_PAD_SYM,
+// whose staged entry is clamped to -WAVE_CLAMP (ragged_packed.cu: why
+// that leaves its score).  The stride between columns counts pairs: the
+// target is read as uint16 and the pass buffer holds one packed G and F
+// per (pair, column).
+//
 // Trackers keep dp.cuh's rule: max score, then the lowest target column,
 // then the lowest query row.  Each thread tracks its own rows over its
 // columns (sw: a running max per cell, and on a new maximum the first of
@@ -112,6 +127,9 @@ constexpr int WAVE_CLAMP = 1024;  // profile entries are clamped into +-this
 constexpr int WAVE_CAP = 255;     // K7 holds H at most this (NARROW_CAP)
 // the largest cap: H + s + go stays within int16 (q8_narrow.cu)
 constexpr int WAVE_CAP_MAX = 32767 - WAVE_CLAMP;
+// PAIR: the symbol a lane reads past its length (the flat packing's pad
+// symbol, which scores PAD_SCORE in every profile row under safe_pad)
+constexpr int WAVE_PAD_SYM = 31;
 __device__ __forceinline__ int wave_pack(int lo, int hi) {
   return (int)(((unsigned)lo & 0xffffu) | ((unsigned)hi << 16));
 }
@@ -147,7 +165,8 @@ __device__ __forceinline__ bool wave_first(int as, int aj, int ai, int bs,
 // and K7's row-interleaved groups.  NARROW: each entry holds two, of row i
 // (low half) and of the row ALPHA ints after it (high half: the next slot
 // of a q8 group), each clamped into [-WAVE_CLAMP, WAVE_CLAMP] before go.
-template <int PSTRIDE = ALPHA, bool NARROW = false>
+// PAIR: one int16 entry of row i, clamped so, as [symbol][k][thread][8].
+template <int PSTRIDE = ALPHA, bool NARROW = false, bool PAIR = false>
 __device__ __forceinline__ void wave_stage(int4* sp,
                                            const int* __restrict__ prof,
                                            int prof_rows, int base, int G,
@@ -158,6 +177,16 @@ __device__ __forceinline__ void wave_stage(int4* sp,
   for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
     const int row = idx / ALPHA;  // within the pass
     const int sym = idx - row * ALPHA;
+    if (PAIR) {
+      int v = base + row < prof_rows
+                  ? __ldg(prof + (size_t)(base + row) * PSTRIDE + sym)
+                  : WAVE_PAD;
+      v = min(max(v, -WAVE_CLAMP), WAVE_CLAMP) + go;
+      const int t = row / R, rr = row - t * R;
+      reinterpret_cast<short*>(sp)[((sym * (R / 8) + (rr >> 3)) * G + t) * 8 +
+                                   (rr & 7)] = (short)v;
+      continue;
+    }
     if (NARROW) {
       int lo = WAVE_PAD, hi = WAVE_PAD;
       if (base + row < prof_rows) {
@@ -183,7 +212,7 @@ __device__ __forceinline__ void wave_stage(int4* sp,
 // One walk's state in one thread (everything but the row arrays).
 struct WaveThread {
   const int4* sp;                 // the pass's staged profile
-  const uint8_t* __restrict__ tgt;  // this lane's column 0
+  const uint8_t* __restrict__ tgt;  // this lane's (PAIR: pair's) column 0
   const int* bh;                  // buffer above the pass (H, F)
   const int* bf;
   int* wh;                        // buffer written by this pass
@@ -198,10 +227,22 @@ struct WaveThread {
   int oc, oci;                    // ov last column
   int rq;                         // PAD_ROWS: row Q - 1 in its thread
   int ngo2, gcap2, nge2, floor2;  // NARROW: -go, cap - go, -ge, the floor
+  int len_a, len_b;               // PAIR: each lane's length (len: longer)
 
+  // PAIR: both lanes' symbols (low byte lane 2k's), a lane past its length
+  // reading WAVE_PAD_SYM
+  template <bool PAIR = false>
   __device__ __forceinline__ void load_tiles(int col) {
     const bool in = col < len;
-    ts_next = in ? tgt[(size_t)col * stride] : 0;
+    if (PAIR) {
+      const int v =
+          in ? reinterpret_cast<const uint16_t*>(tgt)[(size_t)col * stride]
+             : 0;
+      ts_next = (col < len_a ? v & 0xff : WAVE_PAD_SYM) |
+                (col < len_b ? v >> 8 : WAVE_PAD_SYM) << 8;
+    } else {
+      ts_next = in ? tgt[(size_t)col * stride] : 0;
+    }
     if (!top) {
       th_next = in ? bh[(size_t)col * stride] : 0;
       tf_next = in ? bf[(size_t)col * stride] : 0;
@@ -209,13 +250,32 @@ struct WaveThread {
   }
 };
 
+// One packed cell (NARROW) of row r, its profile entry pv: E, F, H, G =
+// min(H, cap) - go, and the running best over the walk's rows.
+template <bool MASK>
+__device__ __forceinline__ void wave_cell2(WaveThread& w, int r, int pv,
+                                           int nge, const int (&Gi)[WAVE_R],
+                                           int (&Go)[WAVE_R],
+                                           int (&E)[WAVE_R], int& f, int& gup,
+                                           int& gd) {
+  const int e = wave_addmax2(E[r], nge, Gi[r]);
+  E[r] = e;
+  f = wave_addmax2(f, nge, gup);
+  const int h = wave_max_relu2(wave_addmax2(gd, pv, e), f);
+  gd = Gi[r];
+  Go[r] = wave_addmin2(h, w.ngo2, w.gcap2);
+  gup = Go[r];
+  if (!MASK || r < w.nv) w.pb = wave_max2(w.pb, gup);
+}
+
 // Step s of a pass: receive the row above, walk column s - t.  QROW
 // (PAD_ROWS, the pass that holds row Q - 1): the thread that holds it
 // tracks that row, and the pass's owner writes the buffer.  MASK: rows
 // past the walk's last row, in the pass's owner and past it, are not
-// tracked; with QROW (PAD_TAIL) both hold.  NARROW: the packed form.
+// tracked; with QROW (PAD_TAIL) both hold.  NARROW: the packed form;
+// PAIR: its two target lanes.
 template <int ALG, bool ENDS, bool MASK, bool QROW = false,
-          bool NARROW = false>
+          bool NARROW = false, bool PAIR = false>
 __device__ __forceinline__ void wave_step(WaveThread& w, int s,
                                           const int (&Gi)[WAVE_R],
                                           int (&Go)[WAVE_R],
@@ -228,7 +288,7 @@ __device__ __forceinline__ void wave_step(WaveThread& w, int s,
     w.ts_cur = w.ts_next;
     w.th_cur = w.th_next;
     w.tf_cur = w.tf_next;
-    w.load_tiles(s + G + w.t);
+    w.load_tiles<PAIR>(s + G + w.t);
   }
   const int sym0 = __shfl_sync(WAVE_FULL, w.ts_cur, src, G);
   int gtop, ftop;
@@ -261,40 +321,51 @@ __device__ __forceinline__ void wave_step(WaveThread& w, int s,
     return;
   }
 
-  const int4* ps = w.sp + sym * (R / 4) * G + w.t;
   const int go = w.go, nge = NARROW ? w.nge2 : -w.ge;
   int gd = w.gdiag;
   w.gdiag = gup;
   const int best0 = w.pb;
   int fq = 0;
+  if (PAIR) {
+    // each lane's 16 rows of its symbol: two int4 of eight int16 entries
+    const int4* pa = w.sp + (sym & 0xff) * (R / 8) * G + w.t;
+    const int4* pz = w.sp + (sym >> 8) * (R / 8) * G + w.t;
 #pragma unroll
-  for (int k = 0; k < R / 4; ++k) {
-    const int4 p4 = ps[k * G];
-    const int pv[4] = {p4.x, p4.y, p4.z, p4.w};
+    for (int k = 0; k < R / 8; ++k) {
+      const int4 a4 = pa[k * G], z4 = pz[k * G];
+      const int av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const int zv[4] = {z4.x, z4.y, z4.z, z4.w};
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int r = 4 * k + c;
-      if (NARROW) {
-        const int e = wave_addmax2(E[r], nge, Gi[r]);
-        E[r] = e;
-        f = wave_addmax2(f, nge, gup);
-        const int h = wave_max_relu2(wave_addmax2(gd, pv[c], e), f);
-        gd = Gi[r];
-        Go[r] = wave_addmin2(h, w.ngo2, w.gcap2);
-        gup = Go[r];
-        if (!MASK || r < w.nv) w.pb = wave_max2(w.pb, gup);
-        continue;
+      for (int c = 0; c < 8; ++c) {  // row 8k + c: lane 2k's entry low
+        const int pv =
+            __byte_perm(av[c >> 1], zv[c >> 1], c & 1 ? 0x7632 : 0x5410);
+        wave_cell2<MASK>(w, 8 * k + c, pv, nge, Gi, Go, E, f, gup, gd);
       }
-      const int e = wave_addmax(E[r], nge, Gi[r]);
-      E[r] = e;
-      f = wave_addmax(f, nge, gup);
-      int h = wave_addmax(gd, pv[c], e);
-      h = ALG == SW ? wave_max_relu(h, f) : max(h, f);
-      gd = Gi[r];
-      Go[r] = h - go;
-      gup = Go[r];
-      if (ALG == SW && (!MASK || r < w.nv)) w.pb = max(w.pb, h);
-      if (MASK && r == w.rl) fq = f;
+    }
+  } else {
+    const int4* ps = w.sp + sym * (R / 4) * G + w.t;
+#pragma unroll
+    for (int k = 0; k < R / 4; ++k) {
+      const int4 p4 = ps[k * G];
+      const int pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = 4 * k + c;
+        if (NARROW) {
+          wave_cell2<MASK>(w, r, pv[c], nge, Gi, Go, E, f, gup, gd);
+          continue;
+        }
+        const int e = wave_addmax(E[r], nge, Gi[r]);
+        E[r] = e;
+        f = wave_addmax(f, nge, gup);
+        int h = wave_addmax(gd, pv[c], e);
+        h = ALG == SW ? wave_max_relu(h, f) : max(h, f);
+        gd = Gi[r];
+        Go[r] = h - go;
+        gup = Go[r];
+        if (ALG == SW && (!MASK || r < w.nv)) w.pb = max(w.pb, h);
+        if (MASK && r == w.rl) fq = f;
+      }
     }
   }
   w.out_g = gup;
@@ -369,14 +440,14 @@ __device__ __forceinline__ void wave_step(WaveThread& w, int s,
 }
 
 template <int ALG, bool ENDS, bool MASK, bool QROW = false,
-          bool NARROW = false>
+          bool NARROW = false, bool PAIR = false>
 __device__ __forceinline__ void wave_pass(WaveThread& w, int nsteps,
                                           int (&GA)[WAVE_R],
                                           int (&GB)[WAVE_R],
                                           int (&E)[WAVE_R]) {
   for (int s = 0; s < nsteps; s += 2) {  // nsteps is even
-    wave_step<ALG, ENDS, MASK, QROW, NARROW>(w, s, GA, GB, E);
-    wave_step<ALG, ENDS, MASK, QROW, NARROW>(w, s + 1, GB, GA, E);
+    wave_step<ALG, ENDS, MASK, QROW, NARROW, PAIR>(w, s, GA, GB, E);
+    wave_step<ALG, ENDS, MASK, QROW, NARROW, PAIR>(w, s + 1, GB, GA, E);
   }
 }
 
@@ -407,18 +478,26 @@ __device__ __forceinline__ void wave_pass(WaveThread& w, int nsteps,
 //   prof and prof + ALPHA ints (sw score only, gaps >= 0 with go + ge <=
 //   -WAVE_FLOOR, cap in [0, WAVE_CAP_MAX]); trk.best is the packed
 //   tracker of G = min(H, cap) - go, -go in both halves on entry.
+// PAIR (ragged_packed.cu, with NARROW): the packed walk of one query
+//   (profile rows prof) against two target lanes, lengths len_a (low
+//   half) and len_b (high half); len is the longer, tgt the pair's bytes
+//   of column 0, read as uint16, and stride counts pairs, in the target
+//   and in the buffer.
 // All G threads of a group return the same tracker.
 template <int ALG, bool ENDS, bool SEG_OUT, int PSTRIDE = ALPHA,
-          bool PAD_ROWS = false, bool PAD_TAIL = false, bool NARROW = false>
+          bool PAD_ROWS = false, bool PAD_TAIL = false, bool NARROW = false,
+          bool PAIR = false>
 __device__ __forceinline__ void wave_walk(
     int4* sp, const int* __restrict__ prof, int prof_rows, int row0,
     int rows, int Q, const uint8_t* __restrict__ tgt, int stride, int len,
     const int* hb_in, const int* fb_in, int* pb_h, int* pb_f, int G, int go,
-    int ge, Track& trk, int cap = WAVE_CAP) {
+    int ge, Track& trk, int cap = WAVE_CAP, int len_a = 0, int len_b = 0) {
   constexpr int R = WAVE_R;
   constexpr bool kPenCol = ALG == NW || ALG == HW;
   static_assert(!NARROW || (ALG == SW && !ENDS && !SEG_OUT && !PAD_ROWS),
                 "the packed walk is sw score-only");
+  static_assert(!PAIR || (NARROW && PSTRIDE == ALPHA),
+                "a pair of lanes takes the packed walk of one query");
   const int t = threadIdx.x & (G - 1);
   const int GR = G * R;
   const int n_pass = rows > 0 ? (rows + GR - 1) / GR : 0;
@@ -440,6 +519,8 @@ __device__ __forceinline__ void wave_walk(
   w.tgt = tgt;
   w.stride = stride;
   w.len = len;
+  w.len_a = len_a;
+  w.len_b = len_b;
   w.G = G;
   w.t = t;
   w.go = go;
@@ -463,7 +544,7 @@ __device__ __forceinline__ void wave_walk(
     const int base = p * GR;
     const bool final_pass = p == n_pass - 1;
     __syncthreads();  // every group is done with the previous profile
-    wave_stage<PSTRIDE, NARROW>(sp, prof, prof_rows, base, G, go);
+    wave_stage<PSTRIDE, NARROW, PAIR>(sp, prof, prof_rows, base, G, go);
     __syncthreads();
     w.q0 = row0 + base + t * R;
     w.nv = min(max(row0 + rows - w.q0, 0), R);
@@ -494,20 +575,21 @@ __device__ __forceinline__ void wave_walk(
     w.pbi = -1;
     w.pbj = -1;
     w.th_next = w.tf_next = 0;
-    w.load_tiles(t);
+    w.load_tiles<PAIR>(t);
     w.ts_cur = w.ts_next;
     w.th_cur = w.th_next;
     w.tf_cur = w.tf_next;
-    w.load_tiles(G + t);
+    w.load_tiles<PAIR>(G + t);
     if (PAD_ROWS && PAD_TAIL && p == pass_q && final_pass &&
         rows % R != 0) {
       wave_pass<ALG, ENDS, true, true>(w, nsteps, GA, GB, E);
     } else if (PAD_ROWS && p == pass_q) {
       wave_pass<ALG, ENDS, false, true>(w, nsteps, GA, GB, E);
     } else if (final_pass && rows % R != 0) {
-      wave_pass<ALG, ENDS, true, false, NARROW>(w, nsteps, GA, GB, E);
+      wave_pass<ALG, ENDS, true, false, NARROW, PAIR>(w, nsteps, GA, GB, E);
     } else {
-      wave_pass<ALG, ENDS, false, false, NARROW>(w, nsteps, GA, GB, E);
+      wave_pass<ALG, ENDS, false, false, NARROW, PAIR>(w, nsteps, GA, GB,
+                                                       E);
     }
     if (ALG == SW) {
       if (!ENDS) {

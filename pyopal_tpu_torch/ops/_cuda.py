@@ -45,6 +45,7 @@ KERNELS = {
     "ragged_v1": ("pyopal_ragged_v1_launch", [_P] * 9 + [_I] * 12 + [_P]),
     "ragged_strip": ("pyopal_ragged_strip_launch", [_P] * 9 + [_I] * 12 + [_P]),
     "q8_narrow": ("pyopal_q8_narrow_launch", [_P] * 9 + [_I] * 13 + [_P]),
+    "ragged_packed": ("pyopal_ragged_packed_launch", [_P] * 9 + [_I] * 13 + [_P]),
     "traceback_dirs": ("pyopal_traceback_dirs_launch", [_P] * 5 + [_I] * 9 + [_P]),
     "traceback_walk": ("pyopal_traceback_walk_launch", [_P] * 6 + [_I] * 7 + [_P]),
 }

@@ -24,10 +24,12 @@ Routing is decided before any launch and never after a failure:
   kernel (K1), as `plan_tier_launches` splits them in both packages.  In
   sw score mode a q8 group takes K2 on the packed walk of K7 (two slots
   in int16 halves) wherever `_packed_exact_domain` proves that no
-  intermediate leaves int16, and K2's int32 walk otherwise.  A
-  longer query goes alone: one K1 launch at its fine tier where
-  `ragged.supports_fine` admits it, else the segmented kernel (K3,
-  `ragged_long`), one launch per 2048 rows.
+  intermediate leaves int16, and K2's int32 walk otherwise; a K1
+  launch of a wave of blocks or more likewise takes K1's packed route
+  (two target lanes a walk) where `_ragged_packed_cap` proves it under
+  rows = min(Q_pad, longest target).  A longer query goes alone: one K1
+  launch at its fine tier where `ragged.supports_fine` admits it, else
+  the segmented kernel (K3, `ragged_long`), one launch per 2048 rows.
 - with a 32-column matrix (no ``safe_pad``) there is no q8 group and no
   fine tier: each query-tier cohort takes one `ragged.search_flat`
   launch, K5 (strips of 256 rows) in score mode at tiers 512-4096 and K4
@@ -106,22 +108,23 @@ def _slice_maxlen(database, start, end) -> int:
     return t_max
 
 
-def _count_cells(qlens, fp: packing.FlatPacked, walks):
+def _count_cells(qlens, fp: packing.FlatPacked, walks, pairs=False):
     """Count one launch's cells: ``cells.needed``, the ``qlens`` query
     residues times the slice's residues, and ``cells.walked``, what the
     kernel's walks step through: for each ``(rows, G)`` walk its rows in
     whole passes times the pack's steps at ``G`` (`ragged.walk_rows`,
-    `ragged.walk_steps`; the steps are kept on the pack).  The engine
-    launches at gaps >= 0 only (`_fp32_exact_domain`), where every walk
-    stops at its query's length."""
+    `ragged.walk_steps`, with ``pairs`` for K1's packed route, whose
+    warps step two lanes a group; the steps are kept on the pack).  The
+    engine launches at gaps >= 0 only (`_fp32_exact_domain`), where every
+    walk stops at its query's length."""
     if not counting():
         return
     steps = fp.__dict__.setdefault("_walk_steps", {})
     walked = 0
     for rows, G in walks:
-        if G not in steps:
-            steps[G] = ragged.walk_steps(fp.lengths, G)
-        walked += ragged.walk_rows(rows, G) * steps[G]
+        if (G, pairs) not in steps:
+            steps[G, pairs] = ragged.walk_steps(fp.lengths, G, pairs)
+        walked += ragged.walk_rows(rows, G) * steps[G, pairs]
     count("cells.needed", sum(qlens) * fp.total_cells)
     count("cells.walked", walked)
 
@@ -292,8 +295,9 @@ def _search_batch_kernels(
     """Kernel route: one launch per query-tier cohort (q8 launches of
     up to `_Q8_LAUNCH_GROUPS` groups, on the packed walk where
     `_packed_exact_domain` holds for the matrix's largest absolute entry
-    ``m_abs``, then a ragged launch for the leftovers; without
-    ``safe_pad`` the ragged launch alone)."""
+    ``m_abs``, then a ragged launch for the leftovers, on K1's packed
+    route where `_ragged_packed_cap` gives a cap; without ``safe_pad``
+    the ragged launch alone)."""
     nq = len(queries_enc)
     n = max(end - start, 0)
     launches = []  # (device tensor, row -> query-index list)
@@ -349,14 +353,20 @@ def _search_batch_kernels(
                 database, start, end, device
             )
             profs, qlens = _profiles_for_cohort(cohort, matrix, device)
+            cap = _ragged_packed_cap(
+                algorithm, with_ends, go, ge, m_abs, profs.shape[1],
+                _slice_maxlen(database, start, end), safe_pad, len(cohort),
+                fp.lengths.size,
+            )
             s, qe, te = ragged.search_flat(
                 profs, qlens, flat_t, lengths, bos, cos, los,
                 int(go), int(ge), algorithm, with_ends, chunk=fp.chunk,
-                safe_pad=safe_pad,
+                safe_pad=safe_pad, packed_cap=cap,
             )
             G = ragged.wave_group(profs.shape[1])
             _count_cells(
-                [len(q) for q in cohort], fp, [(len(q), G) for q in cohort]
+                [len(q) for q in cohort], fp, [(len(q), G) for q in cohort],
+                pairs=cap is not None,
             )
             launches.append((
                 _assemble_flat(inv_pos, s, qe, te, with_ends),
@@ -434,21 +444,49 @@ def _fp32_exact_domain(
 
 
 def _packed_exact_domain(algorithm, with_ends, gap_open, gap_extend, m_abs,
-                         q_pad) -> bool:
-    """Whether a q8 launch at tier ``q_pad`` may take the packed walk
-    (``csrc/q8_narrow.cu``) with H's cap at ``q_pad * m_abs`` and return
-    K2's exact scores (static; no device work): sw score mode, matrix
-    entries within the walk's staging clamp (``m_abs``, the largest
-    absolute entry), and gaps and cap within `ragged.packed_fits`: both
-    gaps >= 0 within the floor's reach, every intermediate in int16.  No
-    sw cell of a ``q_pad``-row walk exceeds ``q_pad * m_abs``, so the cap
-    never binds."""
+                         rows) -> bool:
+    """Whether a launch may take the packed walk with H's cap at ``rows *
+    m_abs`` and return the int32 walk's exact scores (static; no device
+    work): sw score mode, matrix entries within the walk's staging clamp
+    (``m_abs``, the largest absolute entry), and gaps and cap within
+    `ragged.packed_fits`: both gaps >= 0 within the floor's reach, every
+    intermediate in int16.  ``rows`` bounds the diagonal moves of any
+    local alignment: a q8 group's tier ``Q_pad`` (``csrc/q8_narrow.cu``),
+    or min(``Q_pad``, longest target) for K1's packed route
+    (`_ragged_packed_cap`).  No sw cell exceeds ``rows * m_abs``, so the
+    cap never binds."""
     return (
         algorithm == "sw"
         and not with_ends
         and m_abs <= ragged.WAVE_CLAMP
-        and ragged.packed_fits(int(gap_open), int(gap_extend), q_pad * m_abs)
+        and ragged.packed_fits(int(gap_open), int(gap_extend), rows * m_abs)
     )
+
+
+#: K1's packed route walks two lanes a group, so its launch has half of
+#: K1's blocks; below one wave of the H100 (132 SMs, two 256-thread
+#: blocks each) it ran slower than K1's int32 walk (one query on 12,071
+#: lanes at the 128 tier: 190 blocks, 0.89x; from 380 blocks it wins;
+#: PERF.md §6)
+_PACKED_MIN_BLOCKS = 2 * 132
+
+
+def _ragged_packed_cap(algorithm, with_ends, gap_open, gap_extend, m_abs,
+                       q_pad, t_max, safe_pad, n_q, n_lanes):
+    """H's cap for a `ragged.search_flat` launch of ``n_q`` queries at
+    tier ``q_pad`` over ``n_lanes`` target lanes whose longest target is
+    ``t_max`` (host data: no device sync), or None for K1's int32 walk.
+    K1's packed route (``csrc/ragged_packed.cu``) needs ``safe_pad`` (its
+    pad symbol) and `_packed_exact_domain` with rows = min(``q_pad``,
+    ``t_max``), and then returns K1's scores; it is taken where its
+    launch fills `_PACKED_MIN_BLOCKS` blocks."""
+    rows = min(q_pad, t_max)
+    pairs = ragged.WAVE_THREADS // ragged.wave_group(q_pad)  # a block's
+    blocks = n_q * -(-n_lanes // (2 * pairs))
+    if (safe_pad and blocks >= _PACKED_MIN_BLOCKS and _packed_exact_domain(
+            algorithm, with_ends, gap_open, gap_extend, m_abs, rows)):
+        return rows * m_abs
+    return None
 
 
 def search_scores_batch(
@@ -518,7 +556,7 @@ def search_scores_batch(
     for i in long_idx:
         scores[i], q_ends[i], t_ends[i] = _search_long_kernels(
             database, start, end, queries_enc[i], matrix, gap_open,
-            gap_extend, algorithm, with_ends, device, safe_pad,
+            gap_extend, algorithm, with_ends, device, safe_pad, m_abs,
         )
 
     sweep_idx = [
@@ -543,11 +581,12 @@ def search_scores_batch(
 
 def _search_long_kernels(
     database, start, end, query_enc, matrix, go, ge, algorithm, with_ends,
-    device, safe_pad,
+    device, safe_pad, m_abs,
 ):
     """One query beyond what `ragged.supports` admits: a single K1 launch
     at its fine tier (`ragged.fine_qpad`) where ``safe_pad`` holds and
-    `ragged.supports_fine` admits it, else the segmented kernel K3
+    `ragged.supports_fine` admits it, on K1's packed route where
+    `_ragged_packed_cap` gives a cap, else the segmented kernel K3
     (`ragged_long.search_flat_long`).
 
     Returns the three result planes as numpy arrays in slice-local
@@ -565,9 +604,14 @@ def _search_long_kernels(
                 ragged.make_profiles_host([query_enc], matrix, q_pad=q_pad)
             ).to(device)
             qlens = torch.tensor([Q], dtype=torch.int32, device=device)
+        cap = _ragged_packed_cap(
+            algorithm, with_ends, go, ge, m_abs, q_pad,
+            _slice_maxlen(database, start, end), True, 1, fp.lengths.size,
+        )
         s, qe, te = ragged.search_flat(
             profs, qlens, flat_t, lengths, bos, cos, los, int(go), int(ge),
             algorithm, with_ends, chunk=fp.chunk, safe_pad=True,
+            packed_cap=cap,
         )
         walks = [(Q, ragged.wave_group(q_pad))]
     else:
@@ -581,7 +625,8 @@ def _search_long_kernels(
             (min(qseg, Q - r), ragged.wave_group(min(qseg, Q - r)))
             for r in range(0, Q, qseg)
         ]
-    _count_cells([Q], fp, walks)
+        cap = None
+    _count_cells([Q], fp, walks, pairs=cap is not None)
     with span("pyopal.assemble"):
         planes = torch.stack(
             [s.reshape(-1), qe.reshape(-1), te.reshape(-1)]

@@ -47,6 +47,7 @@ from .ragged import (
     check_flat,
     packed_fits,
     profile_qpad,
+    unpack_halves,
     wave_buffer,
     wave_finish,
     wave_group,
@@ -354,10 +355,7 @@ def narrow_wave_reference(profs, qv, maxq, flat_targets, lengths, bos, cos,
         "sw", False, trk, G, R, False, interleave=QB, narrow=True, h_cap=cap,
     )
     half = trk[0].reshape(n_g * QB // 2, 2, N)
-    packed = (half[:, 0] & 0xFFFF) | ((half[:, 1] & 0xFFFF) << 16)
-    packed = packed.to(torch.int32)  # wraps into the register's bits
-    lo = ((packed & 0xFFFF) ^ 0x8000) - 0x8000
-    hi = packed >> 16  # arithmetic: sign-extended
+    lo, hi = unpack_halves(half[:, 0], half[:, 1])
     score = torch.stack([lo, hi], 1).reshape(n_g, QB, n_blocks, lanes) + go
     score = score.permute(0, 2, 1, 3).contiguous().to(torch.int32)
     return score, torch.full_like(score, -1), torch.full_like(score, -1)

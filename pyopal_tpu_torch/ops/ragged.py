@@ -7,7 +7,9 @@ the reference does (l.1091-1107):
 
 - ``safe_pad`` (the matrix leaves profile column 31, the pad symbol,
   unused: every bundled matrix): K1, `_ragged_kernel_v2` (l.400), every
-  algorithm and mode (``csrc/ragged.cu``);
+  algorithm and mode (``csrc/ragged.cu``); with ``packed_cap`` (sw score
+  mode, where the engine proves int16 exact) K1's packed route, two
+  target lanes a walk in int16 halves (``csrc/ragged_packed.cu``);
 - otherwise score-only at query tiers of `STRIP_MIN_QPAD` rows and more:
   K5, `_ragged_kernel_strip` (l.732), score planes only
   (``csrc/ragged_strip.cu``);
@@ -58,7 +60,7 @@ import numpy as np
 import torch
 
 from ..models import ALGORITHMS
-from ..utils.profiling import spanned
+from ..utils.profiling import count, spanned
 from . import sweep
 
 ALPHA = 32  # profile columns (MAX_ALPHABET_SIZE)
@@ -88,8 +90,9 @@ ALGO_CODES = {"sw": 0, "nw": 1, "hw": 2, "ov": 3}
 SCRATCH_BYTES = 2 << 30
 
 #: kernel launches made by `search_flat` on CUDA tensors, by kernel
-#: (`flat_route`'s names: K1, K4, K5)
-launches = {"ragged": 0, "ragged_v1": 0, "ragged_strip": 0}
+#: (`flat_route`'s names: K1, K4, K5; K1's packed route)
+launches = {"ragged": 0, "ragged_v1": 0, "ragged_strip": 0,
+            "ragged_packed": 0}
 #: plain-version runs made by the wrapper on CPU tensors, by kernel
 plain_calls = dict.fromkeys(launches, 0)
 
@@ -266,6 +269,7 @@ def search_flat(
     with_ends,
     chunk=64,
     safe_pad=False,
+    packed_cap=None,
 ):
     """Every query x the whole flat-packed database.
 
@@ -274,6 +278,8 @@ def search_flat(
     K4.  One kernel launch, or several where one launch's pass buffer (at
     tiers beyond one pass of the walk) would exceed `SCRATCH_BYTES`
     (`wave_buffer`); each adds one to the kernel's count in `launches`.
+    While a profiler runs, K1's (query, target lane) walks are counted in
+    ``ragged.walks_packed`` with ``packed_cap``, else ``ragged.walks_wide``.
 
     Arguments:
         profs: ``(n_q, Q_pad, 32)`` int32 profiles (`make_profiles_host`)
@@ -287,6 +293,12 @@ def search_flat(
         safe_pad: whether the scoring matrix leaves profile column
             `PAD_SYMBOL` unused (at most 31 columns), as the reference's
             argument of that name; its default, False, is the reference's.
+        packed_cap: with ``safe_pad``, in sw score mode, at gaps and a cap
+            within `packed_fits` (else `ValueError`): K1's packed route
+            (``launches["ragged_packed"]``), two target lanes a walk with
+            H capped at ``packed_cap``, so min(sw score, ``packed_cap``)
+            on every lane: K1's scores where no cell reaches the cap
+            (`engine._ragged_packed_cap`).
 
     Returns:
         ``(scores, q_ends, t_ends)``, int32 of shape
@@ -306,7 +318,20 @@ def search_flat(
     if algorithm not in ALGO_CODES:
         raise ValueError(f"invalid algorithm: {algorithm!r}")
     route = flat_route(q_pad, with_ends, safe_pad)
-    if route != "ragged" and n_q:
+    if packed_cap is not None and not (
+            route == "ragged" and algorithm == "sw" and not with_ends
+            and packed_fits(int(go), int(ge), int(packed_cap))):
+        raise ValueError(
+            "packed_cap supports only sw score-only under safe_pad with "
+            "gaps and a cap that keep every intermediate in int16 "
+            "(packed_fits)"
+        )
+    if route == "ragged":  # K1: its walks by route
+        count("ragged.walks_packed" if packed_cap is not None
+              else "ragged.walks_wide", n_q * lengths.numel())
+        if packed_cap is not None:
+            route = "ragged_packed"
+    elif n_q:
         lo, hi = (int(x) for x in torch.aminmax(qlens))
         if lo < 1 or hi > q_pad:
             raise ValueError(
@@ -330,7 +355,8 @@ def search_flat(
         for _ in range(3)
     ]
     # the pass buffer of tiers beyond one pass of the walk
-    chunks, buf = wave_buffer(n_q, 1, q_pad, flat_targets, n_blocks)
+    pairs = packed_cap is not None
+    chunks, buf = wave_buffer(n_q, 1, q_pad, flat_targets, n_blocks, pairs)
     for q0, q1, n0, n1 in chunks:  # one stream: launches reuse the buffer
         _cuda.launch(
             route,
@@ -339,6 +365,7 @@ def search_flat(
             q1 - q0, q_pad, n_blocks, lanes, n0, n1 - n0, int(go), int(ge),
             ALGO_CODES[algorithm], int(bool(with_ends)),
             flat_targets.shape[0], wave_group(q_pad),
+            *((int(packed_cap),) if pairs else ()),
         )
         launches[route] += 1
     return tuple(outs)
@@ -361,7 +388,8 @@ def search_flat_reference(
 ):
     """Plain PyTorch version of `search_flat` (same inputs, outputs, and
     route: `search_flat_v1_reference` for K4,
-    `search_flat_strip_reference` for K5, a column sweep for K1)."""
+    `search_flat_strip_reference` for K5, a column sweep for K1 and for
+    K1's packed route, which returns K1's scores)."""
     route = flat_route(profs.shape[1], with_ends, safe_pad)
     args = (profs, qlens, flat_targets, lengths, bos, cos, los, go, ge,
             algorithm)
@@ -436,6 +464,8 @@ def search_flat_strip_reference(
 WAVE_R = 16
 #: threads per (query, target) of the walk, at most (WAVE_MAX_G)
 WAVE_MAX_G = 16
+#: threads per CUDA block of every walk (WAVE_THREADS)
+WAVE_THREADS = 256
 #: the packed walk (``csrc/wave.cuh``, NARROW; K7 and K2's exact route):
 #: E and F's floor in place of -infinity, the clamp of profile entries,
 #: and K7's cap on H
@@ -483,16 +513,18 @@ def walk_rows(rows: int, G: int) -> int:
     return -(-rows // (G * WAVE_R)) * G * WAVE_R
 
 
-def walk_steps(lengths, G: int) -> int:
+def walk_steps(lengths, G: int, pairs: bool = False) -> int:
     """Steps of one pass of the wavefront walk, summed over target lanes.
 
-    A group of ``G`` threads walks each lane, and the ``32 // G`` lanes of
-    a warp step together: to the warp's longest target, plus the ``G -
-    1`` steps of the wavefront's tail, rounded up to an even count; a
-    warp of empty lanes takes none (``csrc/wave.cuh``: wave_walk).
-    ``lengths`` are a flat pack's lane lengths, in lane order; a launch's
-    lanes start at a multiple of 128, so its warps are the pack's."""
-    per_warp = 32 // G
+    A group of ``G`` threads walks each lane (with ``pairs``, K1's packed
+    route, each pair of lanes 2k, 2k + 1), and the ``32 // G`` lanes (64
+    // G with ``pairs``) of a warp step together: to the warp's longest
+    target, plus the ``G - 1`` steps of the wavefront's tail, rounded up
+    to an even count; a warp of empty lanes takes none (``csrc/wave.cuh``:
+    wave_walk).  ``lengths`` are a flat pack's lane lengths, in lane
+    order; a launch's lanes start at a multiple of 128, so its warps are
+    the pack's."""
+    per_warp = 32 // G * (2 if pairs else 1)
     lanes = np.asarray(lengths).reshape(-1, per_warp)
     # lane by lane: an order faster than max(1) over a short axis
     longest = functools.reduce(np.maximum, lanes.T)
@@ -510,7 +542,7 @@ def wave_buffer_rows(q_pad: int, flat_rows: int, n_blocks: int) -> int:
     return -(-flat_rows // max(n_blocks, 1))
 
 
-def wave_buffer(n_units, slots, q_pad, flat_targets, n_blocks):
+def wave_buffer(n_units, slots, q_pad, flat_targets, n_blocks, pairs=False):
     """The pass buffer of a wavefront-walk call (K1, K2, K4, K5, K7) and
     its launches: ``(chunks, buffer)``.
 
@@ -519,14 +551,18 @@ def wave_buffer(n_units, slots, q_pad, flat_targets, n_blocks):
     column of each lane (``(slots, 2, total_rows, lanes)`` int32, laid
     out like the flat targets) when its ``q_pad`` rows take several
     passes of the walk; `launch_plan` then splits the call within
-    `SCRATCH_BYTES`.  One launch and no buffer (``0``, a null
+    `SCRATCH_BYTES`.  With ``pairs`` (K1's packed route) a pair of lanes
+    shares one packed G and F: ``(slots, 2, total_rows, lanes // 2)``,
+    half the bytes a lane.  One launch and no buffer (``0``, a null
     pointer to the kernel) when the tier fits one pass."""
     rows, lanes = flat_targets.shape
     cols = wave_buffer_rows(q_pad, rows, n_blocks)
     if not cols:
         return [(0, n_units, 0, n_blocks * lanes)], 0
-    units, _, chunks = launch_plan(n_units, slots * cols, n_blocks * lanes)
-    return chunks, torch.empty((units, slots, 2, rows, lanes),
+    width = lanes // 2 if pairs else lanes
+    units, _, chunks = launch_plan(n_units, -(-slots * cols * width // lanes),
+                                   n_blocks * lanes)
+    return chunks, torch.empty((units, slots, 2, rows, width),
                                dtype=torch.int32, device=flat_targets.device)
 
 
@@ -541,7 +577,7 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
                         tgt, lens, hb_in, fb_in, pbuf_h, pbuf_f, go, ge,
                         algorithm, with_ends, trk, G, R, seg_out,
                         interleave=1, pad_rows=False, narrow=False,
-                        h_cap=WAVE_CAP):
+                        h_cap=WAVE_CAP, pair=False):
     """CPU emulation of ``csrc/wave.cuh``'s `wave_walk` over N walks.
 
     It mirrors the kernel: passes of ``G * R`` rows; within a pass the
@@ -564,7 +600,10 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
     go`` (``h_cap``: `WAVE_CAP` for K7, a bound no cell reaches for K2's
     exact route), the tracker and the buffer hold G (``trk``'s best must
     then be ``-go``), and every intermediate is asserted to lie in its
-    range of `packed_ranges`, inside int16.
+    range of `packed_ranges`, inside int16.  With ``pair`` as well (K1's
+    packed route) walks ``2k`` and ``2k + 1`` are the two halves of one
+    walk over a pair of target lanes: both walk to the longer lane's
+    length, and each reads `PAD_SYMBOL` past its own.
     Vectorized over walks and threads in torch (int64).
 
     Arguments (N walks, T columns):
@@ -593,6 +632,7 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
     BIG = 2**31 - 1
     assert not narrow or (sw and not with_ends and not seg_out
                           and not pad_rows)
+    assert not pair or (narrow and interleave == 1 and tgt.shape[1] % 2 == 0)
     go, ge = int(go), int(ge)
     FLOOR = WAVE_FLOOR if narrow else NEG  # E and F's -infinity
     if narrow:
@@ -609,6 +649,9 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
     Q = Q.to(i64)
     lens = lens.to(i64)
     tgt = tgt.to(i64)
+    if pair:  # a pair walks to its longer lane, the shorter one on pads
+        tgt = torch.where(torch.arange(T)[:, None] < lens, tgt, PAD_SYMBOL)
+        lens = lens.reshape(-1, 2).amax(1).repeat_interleave(2)
     walk_prof = walk_prof.to(i64)
     prof_flat = torch.cat([prof_flat.to(i64), torch.full((ALPHA,), PAD_SCORE,
                                                          dtype=i64)])
@@ -808,6 +851,14 @@ def wave_walk_reference(prof_flat, prof_rows, walk_prof, row0, rows, Q,
     return torch.stack([best, cap, bi, bj, ci])
 
 
+def unpack_halves(lo, hi):
+    """The halves of the packed register built from int64 ``lo`` and
+    ``hi`` (the packed walk's trackers), as its finish reads them:
+    sign-extended, a value outside int16 wrapped as in the register."""
+    packed = ((lo & 0xFFFF) | ((hi & 0xFFFF) << 16)).to(torch.int32)
+    return ((packed & 0xFFFF) ^ 0x8000) - 0x8000, packed >> 16
+
+
 def wave_finish(trk, Q, lens, algorithm, with_ends, score_planes):
     """`dp_finish` of ``csrc/dp.cuh`` on ``(5, N)`` trackers: (score,
     query end, target end), with -1 end planes in score mode unless
@@ -861,6 +912,7 @@ def wave_reference(
     R=WAVE_R,
     pad_rows=False,
     score_planes=False,
+    packed_cap=None,
 ):
     """K1 as its CUDA kernel computes it: `wave_walk_reference` for every
     (query, target lane), ``G`` threads of ``R`` rows each (``G``: the
@@ -868,8 +920,12 @@ def wave_reference(
     outputs as `search_flat` under ``safe_pad``; CPU tensors only.
     With ``pad_rows`` every walk covers all ``Q_pad`` rows, and with
     ``score_planes`` the score-mode end planes are K4's
-    (`wave_v1_reference`, `wave_strip_reference`).  The tests hold it
-    against the JAX package; no call path uses it."""
+    (`wave_v1_reference`, `wave_strip_reference`).  With ``packed_cap``
+    (sw score mode) it is K1's packed route (``csrc/ragged_packed.cu``):
+    the pair form of the packed walk over lanes ``2k``, ``2k + 1``, H
+    capped at ``packed_cap``, the tracker packed and unpacked as the
+    kernel holds it.  The tests hold it against the JAX package and K1's
+    plain version; no call path uses it."""
     del cos, los
     n_q, q_pad, _ = profs.shape
     n_blocks, _, lanes = lengths.shape
@@ -884,11 +940,19 @@ def wave_reference(
     walk_prof = torch.arange(n_q).repeat_interleave(N)
     buf = torch.zeros((T, n_q * N), dtype=torch.int64)
     rows = torch.full_like(Q, q_pad) if pad_rows else Q
+    trk = wave_start(Q, go, ge, algorithm)
+    pair = packed_cap is not None
+    if pair:  # the tracker holds G: -go is the score 0
+        trk[0] = -int(go)
     trk = wave_walk_reference(
         profs.reshape(-1), q_pad, walk_prof, 0, rows, Q, tgt, lens, buf, buf,
-        buf.clone(), buf.clone(), go, ge, algorithm, with_ends,
-        wave_start(Q, go, ge, algorithm), G, R, False, pad_rows=pad_rows,
+        buf.clone(), buf.clone(), go, ge, algorithm, with_ends, trk, G, R,
+        False, pad_rows=pad_rows, narrow=pair,
+        h_cap=packed_cap if pair else WAVE_CAP, pair=pair,
     )
+    if pair:  # low half lane 2k, high half lane 2k + 1
+        lo, hi = unpack_halves(trk[0, 0::2], trk[0, 1::2])
+        trk[0] = torch.stack([lo, hi], 1).reshape(-1) + int(go)
     out = wave_finish(trk, Q, lens, algorithm, with_ends, score_planes)
     return tuple(x.reshape(n_q, n_blocks, lanes) for x in out)
 

@@ -236,7 +236,7 @@ def align_arrays_sharded(
                 s, qe, te = sfm.sharded_search_flat(
                     mesh, profs, qlens, _pack(sfm.LANES), gap_open,
                     gap_extend, algorithm, with_ends=with_ends,
-                    safe_pad=True,
+                    safe_pad=True, m_abs=int(np.abs(matrix).max(initial=0)),
                 )
                 _store(
                     [(row, mesh_idx[qi]) for row, qi in enumerate(v2_idx)],

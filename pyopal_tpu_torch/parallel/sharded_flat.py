@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops import packing, q8, ragged
+from ..ops import engine, packing, q8, ragged
 
 LANES = 128
 
@@ -246,6 +246,7 @@ def sharded_search_flat_device(
     algorithm: str,
     with_ends: bool = True,
     safe_pad: bool = False,
+    m_abs: Optional[int] = None,
 ):
     """`ragged.search_flat` once on each of this rank's shards, leaving
     the outputs on the shards' devices.
@@ -253,7 +254,10 @@ def sharded_search_flat_device(
     ``profs``/``qlens`` are `ragged.make_profiles_host`'s profiles and
     the query lengths (numpy, or tensors on any device).  ``safe_pad``
     routes as in `ragged.search_flat`: K1 with it, K4 or K5 without it
-    (the reference's default).  Returns ``{shard: (scores, q_ends,
+    (the reference's default).  Given the matrix's largest absolute entry
+    ``m_abs``, each shard takes K1's packed route where the engine's
+    predicate admits it with that shard's longest target and lanes
+    (`engine._ragged_packed_cap`).  Returns ``{shard: (scores, q_ends,
     t_ends)}``, each ``(n_q, nblk_max, lanes)`` int32.  The reference's
     ``interpret`` argument has no counterpart.
     """
@@ -262,10 +266,15 @@ def sharded_search_flat_device(
         sf, mesh
     ).items():
         dev = mesh.devices[s]
+        cap = None if m_abs is None else engine._ragged_packed_cap(
+            algorithm, with_ends, go, ge, m_abs, int(profs.shape[1]),
+            int(sf.lengths[s].max(initial=0)), safe_pad, int(profs.shape[0]),
+            sf.lengths[s].size,
+        )
         out[s] = ragged.search_flat(
             _on(profs, dev), _on(qlens, dev), flat_t, lengths, bos, cos,
             los, int(go), int(ge), algorithm, with_ends, chunk=sf.chunk,
-            safe_pad=safe_pad,
+            safe_pad=safe_pad, packed_cap=cap,
         )
     return out
 
@@ -280,12 +289,14 @@ def sharded_search_flat(
     algorithm: str,
     with_ends: bool = True,
     safe_pad: bool = False,
+    m_abs: Optional[int] = None,
 ):
     """`sharded_search_flat_device` gathered into global target order.
 
     Pass ``safe_pad=True`` when the scoring matrix leaves profile column
     31 unused (every bundled matrix) for K1 on each shard; the default,
-    the reference's, runs K4 or K5.  Returns ``(scores, q_ends,
+    the reference's, runs K4 or K5.  ``m_abs`` as in
+    `sharded_search_flat_device`.  Returns ``(scores, q_ends,
     t_ends)`` numpy arrays of shape ``(n_q, n_targets)``, the same on
     every rank.
     """
@@ -293,7 +304,7 @@ def sharded_search_flat(
     nblk_max = sf.lengths.shape[1]
     outs = sharded_search_flat_device(
         mesh, profs, qlens, sf, go, ge, algorithm, with_ends=with_ends,
-        safe_pad=safe_pad,
+        safe_pad=safe_pad, m_abs=m_abs,
     )
     # (n_shards, 3, n_q, nblk_max, lanes) -> (3, n_q, global target)
     stacked = _gather_host(mesh, {s: torch.stack(o) for s, o in outs.items()})

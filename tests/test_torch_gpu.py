@@ -577,6 +577,154 @@ def test_engine_routes_q8_groups_by_mode(dev, mode):
     assert q8.launches == before
 
 
+B62 = ScoringMatrix.from_name("BLOSUM62").int_data()
+#: K1's packed route, by tier: its query lengths alone and as a cohort
+#: (a fine tier takes one query), at BLOSUM62 12/2, whose largest entry
+#: holds T_max 2,885 in int16 at tiers past 2048
+PACKED_K1_TIERS = {
+    64: [64, 33, 1], 128: [128, 65, 90], 256: [256, 129, 200],
+    512: [512, 257, 300], 1024: [1024, 515, 700],
+    2048: [2048, 1025, 1500], 4096: [4096, 2049, 3000], 5120: [5000],
+}
+
+
+def _packed_k1_targets(rng):
+    """Random targets at the edge lengths, 301 of them (an odd count: a
+    lone final pair), and one of exactly T_max = 2,885 residues."""
+    seqs = [rng.integers(0, 20, n).astype(np.uint8) for n in LENGTHS * 30]
+    seqs.append(rng.integers(0, 20, 2885).astype(np.uint8))
+    return seqs
+
+
+@pytest.mark.parametrize("cohort", [False, True])
+@pytest.mark.parametrize("tier", sorted(PACKED_K1_TIERS))
+def test_ragged_packed_route_equals_k1(dev, tier, cohort):
+    """K1's packed route (two lanes a walk, H capped at min(Q_pad, T_max)
+    x 11, the engine's bound) against K1's int32 walk, bit for bit, at
+    tiers 64 to 4096 and the 5,120-row fine tier, one query and a cohort,
+    queries holding a stretch of the 2,885-residue target; one launch
+    each."""
+    from pyopal_tpu_torch.ops import engine
+
+    rng = np.random.default_rng(tier)
+    seqs = _packed_k1_targets(rng)
+    qls = PACKED_K1_TIERS[tier] if cohort else PACKED_K1_TIERS[tier][:1]
+    if cohort and len(qls) == 1:
+        pytest.skip("a fine tier holds one query")
+    queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
+    for q in queries:
+        k = min(len(q), 1500)
+        q[:k] = seqs[-1][:k]
+    fp = packing.pack_sequences_flat(seqs)
+    profs = ragged.make_profiles_host(
+        queries, B62, q_pad=tier if tier == 5120 else None)
+    assert profs.shape[1] == tier
+    cap = min(tier, 2885) * 11
+    assert engine._packed_exact_domain("sw", False, 12, 2, 11,
+                                       min(tier, 2885))
+    args = (torch.from_numpy(profs).to(dev),
+            torch.tensor(qls, dtype=torch.int32, device=dev),
+            *_flat(fp, dev), 12, 2, "sw", False, fp.chunk, True)
+    before = dict(ragged.launches)
+    out = ragged.search_flat(*args, packed_cap=cap)
+    want = ragged.search_flat(*args)
+    _equal(out, want)
+    before["ragged"] += 1
+    before["ragged_packed"] += 1
+    assert ragged.launches == before
+    assert int(out[0].max()) > 4 * min(max(qls), 1500)
+
+
+def test_ragged_packed_route_at_the_bound_edge(dev):
+    """BLOSUM62 x 93 (max |S| 1,023) with targets of at most 31 residues:
+    a tier-2048 query's cap, 31 x 1,023 = 31,713, is within 30 of the
+    largest the walk holds, and a self-hit of 31 W reaches it."""
+    from pyopal_tpu_torch.ops import engine
+
+    rng = np.random.default_rng(31)
+    big = B62 * 93
+    seqs = [rng.integers(0, 20, n).astype(np.uint8)
+            for n in list(rng.integers(0, 32, 400)) + [31]]
+    seqs[-1][:] = 17
+    q = rng.integers(0, 20, 1100).astype(np.uint8)
+    q[500:531] = 17
+    fp = packing.pack_sequences_flat(seqs)
+    cap = 31 * 1023
+    assert engine._packed_exact_domain("sw", False, 12, 2, 1023, 31)
+    assert not engine._packed_exact_domain("sw", False, 12, 2, 1023, 32)
+    args = (torch.from_numpy(ragged.make_profiles_host([q], big)).to(dev),
+            torch.tensor([1100], dtype=torch.int32, device=dev),
+            *_flat(fp, dev), 12, 2, "sw", False, fp.chunk, True)
+    out = ragged.search_flat(*args, packed_cap=cap)
+    _equal(out, ragged.search_flat(*args))
+    assert int(out[0].max()) == cap
+
+
+def test_ragged_packed_split_by_scratch_budget_matches_k1(dev, monkeypatch):
+    """A budget of one query and 128 lanes a launch for the packed
+    route's pass buffer at the 1024 tier (four passes): the launches it
+    makes, and K1's scores; the buffer holds half of K1's bytes a lane."""
+    rng = np.random.default_rng(7)
+    seqs = _packed_k1_targets(rng)
+    qls = PACKED_K1_TIERS[1024]
+    queries = [rng.integers(0, 20, n).astype(np.uint8) for n in qls]
+    fp = packing.pack_sequences_flat(seqs)
+    args = (torch.from_numpy(ragged.make_profiles_host(queries, B62)).to(dev),
+            torch.tensor(qls, dtype=torch.int32, device=dev),
+            *_flat(fp, dev), 12, 2, "sw", False, fp.chunk, True)
+    want = ragged.search_flat(*args)
+    unit_rows = ragged.wave_buffer_rows(1024, fp.flat_targets.shape[0],
+                                        fp.n_blocks)
+    assert unit_rows > 0
+    monkeypatch.setattr(ragged, "SCRATCH_BYTES", 4 * unit_rows * 128)
+    _, buf = ragged.wave_buffer(len(qls), 1, 1024, args[2], fp.n_blocks,
+                                pairs=True)
+    assert buf.shape == (1, 1, 2, fp.flat_targets.shape[0], 64)
+    before = ragged.launches["ragged_packed"]
+    _equal(ragged.search_flat(*args, packed_cap=1024 * 11), want)
+    n = len(qls) * -(-fp.lengths.size // 128)
+    assert n > 3 and ragged.launches["ragged_packed"] == before + n
+
+
+@pytest.mark.parametrize("mode", ["score", "end"])
+def test_engine_routes_k1_by_mode(dev, mode, monkeypatch):
+    """Through `Aligner.align_arrays` on the card (BLOSUM62 12/2; the
+    route's floor of blocks lowered to one for a small database): a K1
+    cohort at the 512 tier and a 5,000-residue query at its fine tier
+    take K1's packed route in sw score mode, K1's int32 walk in end mode,
+    with the same scores; a profiler counts K1's walks by route."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import pyopal_tpu_torch as pt
+    from pyopal_tpu_torch.ops import engine
+    from pyopal_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(engine, "_PACKED_MIN_BLOCKS", 1)
+
+    rng = np.random.default_rng(15)
+    letters = "ARNDCQEGHILKMFPSTWYV"
+    db = pt.Database(["".join(rng.choice(list(letters), int(n)))
+                      for n in rng.integers(1, 2000, 700)])
+    queries = ["".join(rng.choice(list(letters), int(n)))
+               for n in (5000, 300, 400, 500)]
+    al = pt.Aligner("BLOSUM62", gap_open=12, gap_extend=2, device="cuda")
+    before = dict(ragged.launches)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = al.align_arrays(queries, db, mode=mode)
+    k1 = "ragged_packed" if mode == "score" else "ragged"
+    before[k1] += 2
+    assert ragged.launches == before
+    walks = {k: v for k, v in profiling.counters().items()
+             if k.startswith("ragged.")}
+    lanes = -(-len(db) // 128) * 128
+    assert walks == {("ragged.walks_packed" if mode == "score"
+                      else "ragged.walks_wide"): 4 * lanes}
+    other = al.align_arrays(queries, db, mode="end" if mode == "score"
+                            else "score")
+    np.testing.assert_array_equal(got["scores"], other["scores"])
+
+
 def _group_args(dev, seed, n_blocks=2, Q=13):
     """A K6 group: blocks of 128 lanes at t_pad 512 with the edge lengths
     and zero-length lanes, and a query of ``Q`` residues (13: 3 pad

@@ -102,6 +102,42 @@ def test_sharded_matches_reference(algo, mode):
     assert [a - b for a, b in zip(after, before)] == [2 * 4, 4, 0]
 
 
+@pytest.mark.parametrize("mode", ["score", "end"])
+def test_sharded_k1_asks_the_engines_packed_predicate(monkeypatch, mode):
+    """`align_arrays_sharded` asks `engine._ragged_packed_cap` for each
+    shard's K1 launch, with that shard's longest target and lanes (its
+    floor of blocks lowered to one for small shards): in sw score mode
+    every shard takes K1's packed route (its plain version here), in end
+    mode K1's int32 walk, and the arrays equal `Aligner.align_arrays`."""
+    from pyopal_tpu_torch.ops import engine
+
+    asked = []
+    real = engine._ragged_packed_cap
+
+    def spy(*args):
+        asked.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(engine, "_ragged_packed_cap", spy)
+    monkeypatch.setattr(engine, "_PACKED_MIN_BLOCKS", 1)  # small shards
+    seqs = _random_seqs(60, 0, 90, seed=5)
+    queries = _random_seqs(2, 70, 120, seed=6)  # a K1 cohort at tier 128
+    db = pt.Database(seqs)
+    before = dict(ragged.plain_calls)
+    got = align_arrays_sharded(queries, db, mode=mode, mesh=_mesh4())
+    calls = [ragged.plain_calls[k] - before[k]
+             for k in ("ragged", "ragged_packed")]
+    assert calls == ([0, 4] if mode == "score" else [4, 0])
+    sf = sfm.pack_flat_sharded([np.zeros(len(t), np.uint8) for t in seqs], 4)
+    assert sorted((a[6], a[9]) for a in asked) == sorted(
+        (int(sf.lengths[s].max()), sf.lengths[s].size) for s in range(4))
+    assert {a[:6] + a[7:9] for a in asked} == {
+        ("sw", mode == "end", 3, 1, 15, 128, True, 2)}
+    want = pt.Aligner(device="cpu").align_arrays(queries, db, mode=mode)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
 def test_slice_and_fewer_targets_than_shards():
     seqs = _random_seqs(40, 10, 60, seed=12)
     queries = _random_seqs(4, 15, 40, seed=13)

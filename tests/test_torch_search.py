@@ -166,8 +166,8 @@ def test_32_column_matrix_routes_as_reference(monkeypatch, algo, with_ends):
                                          1, algo, with_ends)
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g, r)
-    # q8, K1, K4, K5, K3 (segments), sweep
-    want = [0, 0, 1, 0, 10, 0] if with_ends else [0, 0, 1, 1, 0, 0]
+    # q8, K1, K4, K5, K1's packed route, K3 (segments), sweep
+    want = [0, 0, 1, 0, 0, 10, 0] if with_ends else [0, 0, 1, 1, 0, 0, 0]
     assert [a - b for a, b in zip(after, before)] == want
 
 
@@ -410,6 +410,75 @@ def test_packed_exact_domain_edges(args, want):
     """The static predicate of K2's packed route: (algorithm, with_ends,
     go, ge, max |S|, Q_pad)."""
     assert engine._packed_exact_domain(*args) is want
+
+
+#: Swiss-Prot's lanes (405,632) and the 12,071-sequence database's (12,160)
+SP, SP12 = 405632, 12160
+
+
+@pytest.mark.parametrize("args, want", [
+    # BLOSUM62 12/2 (max |S| 11): tier 4096 and a fine tier hold T_max
+    # 2,885 (cap 31,735), not 2,886; tiers up to 2048 cap at their rows
+    (("sw", False, 12, 2, 11, 4096, 2885, True, 1, SP), 31735),
+    (("sw", False, 12, 2, 11, 4096, 2886, True, 1, SP), None),
+    (("sw", False, 12, 2, 11, 5120, 2885, True, 1, SP), 31735),
+    (("sw", False, 12, 2, 11, 5632, 2886, True, 1, SP), None),
+    (("sw", False, 12, 2, 11, 2048, 35213, True, 4, SP), 22528),
+    (("sw", False, 12, 2, 11, 64, 2719, True, 1, SP), 704),
+    (("sw", False, 12, 2, 11, 256, 0, True, 1, SP), 0),  # an empty slice
+    # BLOSUM50 3/1 (max |S| 15): T_max 2,116, not 2,117
+    (("sw", False, 3, 1, 15, 4096, 2116, True, 1, SP), 31740),
+    (("sw", False, 3, 1, 15, 4096, 2117, True, 1, SP), None),
+    (("sw", True, 12, 2, 11, 256, 1000, True, 1, SP), None),  # end mode
+    (("nw", False, 12, 2, 11, 256, 1000, True, 1, SP), None),
+    (("hw", False, 12, 2, 11, 256, 1000, True, 1, SP), None),
+    (("ov", False, 12, 2, 11, 256, 1000, True, 1, SP), None),
+    (("sw", False, -1, 2, 11, 256, 1000, True, 1, SP), None),
+    (("sw", False, 12, -1, 11, 256, 1000, True, 1, SP), None),
+    (("sw", False, 12, 2, 11, 256, 1000, False, 1, SP), None),  # 32 columns
+    (("sw", False, 12, 2, 1025, 16, 16, True, 1, SP), None),  # the clamp
+    # the launch's blocks (256 / G pairs a block) against one wave, 264:
+    # one query at the 128 tier on 12,160 lanes is 190, two are 380; at
+    # the 256 tier one is 380; at the 64 tier three are 285
+    (("sw", False, 3, 1, 15, 128, 1827, True, 1, SP12), None),
+    (("sw", False, 3, 1, 15, 128, 1827, True, 2, SP12), 1920),
+    (("sw", False, 3, 1, 15, 256, 1827, True, 1, SP12), 3840),
+    (("sw", False, 3, 1, 15, 64, 1827, True, 2, SP12), None),
+    (("sw", False, 3, 1, 15, 64, 1827, True, 3, SP12), 960),
+])
+def test_ragged_packed_cap_edges(args, want):
+    """The static route of K1's packed walk: (algorithm, with_ends, go,
+    ge, max |S|, Q_pad, longest target, safe_pad, queries, lanes) -> H's
+    cap, or None for K1's int32 walk."""
+    assert engine._ragged_packed_cap(*args) == want
+
+
+@pytest.mark.parametrize("mode", ["score", "end"])
+def test_k1_cohorts_and_fine_tier_take_the_packed_walk_in_score_mode(
+        monkeypatch, mode):
+    """Through `Aligner.align_batch` on the CPU (BLOSUM62 12/2; the
+    route's floor of blocks lowered to one for a small database): a K1
+    cohort at tier 128 and a 4,100-residue query at its fine tier take
+    K1's packed route in sw score mode (its plain version) and K1's
+    int32 walk in end mode, with the same scores."""
+    monkeypatch.setattr(engine, "_PACKED_MIN_BLOCKS", 1)
+    rng = np.random.default_rng(19)
+    al = pt.Aligner("BLOSUM62", gap_open=12, gap_extend=2, device="cpu")
+    plain = al.alphabet.letters[:20]
+    targets = ["".join(rng.choice(list(plain), n)) for n in (0, 1, 9, 30)]
+    queries = ["".join(rng.choice(list(plain), n)) for n in (4100, 70, 90)]
+    db = pt.Database(targets)
+    before = dict(ragged.plain_calls)
+    got = al.align_batch(queries, db, mode=mode)
+    k1 = "ragged_packed" if mode == "score" else "ragged"
+    before[k1] += 2
+    assert ragged.plain_calls == before
+    S = al.scoring_matrix.int_data()
+    enc = lambda s: np.frombuffer(db.alphabet.encode(s), np.uint8)  # noqa
+    for qq, hits in zip(queries, got):
+        for r, t in zip(hits, targets):
+            assert r.score == naive.score_end(enc(qq), enc(t), S, 12, 2,
+                                              "sw")[0]
 
 
 def _q8_fuzz_batch(seed):

@@ -144,12 +144,13 @@ def test_outputs_equal_with_and_without_profiler(db, aligner, monkeypatch,
         ]
 
 
-def _hand_steps(fp, G):
+def _hand_steps(fp, G, pairs=False):
     """Steps of one pass over a pack's lanes, warp by warp: the ``32 //
-    G`` lanes of a warp step to their longest target plus ``G - 1``,
-    rounded up to even; a warp of empty lanes takes none."""
+    G`` lanes of a warp (``64 // G`` on K1's packed route, a pair of
+    lanes a group) step to their longest target plus ``G - 1``, rounded
+    up to even; a warp of empty lanes takes none."""
     lens = [int(x) for x in fp.lengths.reshape(-1)]
-    per = 32 // G
+    per = 32 // G * (2 if pairs else 1)
     total = 0
     for w in range(0, len(lens), per):
         longest = max(lens[w : w + per])
@@ -158,10 +159,10 @@ def _hand_steps(fp, G):
     return total
 
 
-def _hand_walk(fp, rows, G):
+def _hand_walk(fp, rows, G, pairs=False):
     """Cells of one walk of ``rows`` query rows: its passes of ``16 G``
     rows, each over the pack's steps."""
-    return -(-rows // (16 * G)) * 16 * G * _hand_steps(fp, G)
+    return -(-rows // (16 * G)) * 16 * G * _hand_steps(fp, G, pairs)
 
 
 def _hand_counts(db, queries, with_ends):
@@ -175,11 +176,26 @@ def _hand_counts(db, queries, with_ends):
     )
     launches = {}
     groups_by_walk = {}
+    # K1 in sw score mode at 3/1: min(Q_pad, T_max) x 15 with targets of
+    # under 60 residues stays within int16, so every K1 launch takes the
+    # packed route (its floor of blocks lowered by the caller), a pair of
+    # lanes a walk; K1 walks by route, counted in (query, target lane)
+    # walks
+    assert max(db.get_lengths()) < 60
+    k1 = "ragged" if with_ends else "ragged_packed"
+    k1_walks = "ragged.walks_wide" if with_ends else "ragged.walks_packed"
 
-    def add(fp, qlens, walks, copied):
+    def add(fp, qlens, walks, copied, pairs=False):
         out["cells.needed"] += sum(qlens) * fp.total_cells
-        out["cells.walked"] += sum(_hand_walk(fp, r, G) for r, G in walks)
+        out["cells.walked"] += sum(_hand_walk(fp, r, G, pairs)
+                                   for r, G in walks)
         out["copyback.bytes"] += copied * n * 4
+
+    def k1_launch(fp, n_q):
+        name = f"plain_calls.{k1}"
+        launches[name] = launches.get(name, 0) + 1
+        groups_by_walk[k1_walks] = (groups_by_walk.get(k1_walks, 0)
+                                    + n_q * fp.lengths.size)
 
     kern = [q for q in enc if ragged.supports(len(q), "sw", with_ends, True)]
     for tier, lanes, groups, v2 in engine.plan_tier_launches(kern, True):
@@ -207,28 +223,28 @@ def _hand_counts(db, queries, with_ends):
             fp = packing.pack_database_slice_flat(db, 0, n)
             qlens = [len(kern[i]) for i in v2]
             G = ragged.wave_group(tier)
-            add(fp, qlens, [(q, G) for q in qlens], len(v2) * planes)
-            launches["plain_calls.ragged"] = (
-                launches.get("plain_calls.ragged", 0) + 1
-            )
+            add(fp, qlens, [(q, G) for q in qlens], len(v2) * planes,
+                pairs=not with_ends)
+            k1_launch(fp, len(v2))
     for q in enc:
         Q = len(q)
         if ragged.supports(Q, "sw", with_ends, True):
             continue
         fp = packing.pack_database_slice_flat(db, 0, n)
         if ragged.supports_fine(Q, "sw", with_ends):
-            name, k = "plain_calls.ragged", 1
             walks = [(Q, ragged.wave_group(ragged.fine_qpad(Q)))]
-        else:
-            qseg = ragged_long.QSEG
-            k = -(-Q // qseg)
-            name = "plain_calls.ragged_long"
-            walks = [
-                (min(qseg, Q - r), ragged.wave_group(min(qseg, Q - r)))
-                for r in range(0, Q, qseg)
-            ]
-        add(fp, [Q], walks, 3)  # the long path copies all three planes
-        launches[name] = launches.get(name, 0) + k
+            # the long path copies all three planes
+            add(fp, [Q], walks, 3, pairs=not with_ends)
+            k1_launch(fp, 1)
+            continue
+        qseg = ragged_long.QSEG
+        walks = [
+            (min(qseg, Q - r), ragged.wave_group(min(qseg, Q - r)))
+            for r in range(0, Q, qseg)
+        ]
+        add(fp, [Q], walks, 3)
+        name = "plain_calls.ragged_long"
+        launches[name] = launches.get(name, 0) + -(-Q // qseg)
     out.update(launches)
     out.update(groups_by_walk)
     return out
@@ -239,20 +255,31 @@ def _hand_counts(db, queries, with_ends):
 def test_cells_and_bytes_equal_hand_counts(db, aligner, monkeypatch, batch,
                                            mode):
     queries = _batch(batch, monkeypatch, seed=3)
+    # every K1 launch on a small database, as if it filled the card
+    monkeypatch.setattr(engine, "_PACKED_MIN_BLOCKS", 1)
     _, _, counted = _profiled(
         lambda: aligner.align_arrays(queries, db, mode=mode)
     )
     want = _hand_counts(db, queries, mode != "score")
     assert {k: v for k, v in counted.items() if k in want} == want
     assert not any(
-        k.startswith(("launches.", "plain_calls.", "q8.")) and k not in want
+        k.startswith(("launches.", "plain_calls.", "q8.", "ragged."))
+        and k not in want
         for k in counted
     )
     assert counted["cells.needed"] < counted["cells.walked"]
+    # K1's packed route: its share of K1's walks, all of them in sw score
+    # mode, none in end mode (the q8 batch launches no K1)
+    packed = counted.get("ragged.walks_packed", 0)
+    wide = counted.get("ragged.walks_wide", 0)
+    assert (packed + wide > 0) is (batch != "q8")
+    if packed + wide:
+        assert packed / (packed + wide) == (1 if mode == "score" else 0)
 
 
+@pytest.mark.parametrize("pairs", [False, True])
 @pytest.mark.parametrize("G", [2, 4, 8, 16])
-def test_walk_steps_and_rows_by_hand(G):
+def test_walk_steps_and_rows_by_hand(G, pairs):
     rng = np.random.default_rng(G)
     lengths = rng.integers(1, 90, (3, 1, 128)).astype(np.int32)
     lengths[1, 0, 40:] = 0  # padding lanes: whole warps of them
@@ -264,8 +291,8 @@ def test_walk_steps_and_rows_by_hand(G):
         chunk_of_step=np.zeros(1, np.int32),
         last_of_step=np.zeros(1, np.int32), inv_pos=np.zeros(0, np.int32),
     )
-    assert ragged.walk_steps(lengths, G) == _hand_steps(fp, G)
-    assert ragged.walk_steps(np.zeros((1, 1, 128), np.int32), G) == 0
+    assert ragged.walk_steps(lengths, G, pairs) == _hand_steps(fp, G, pairs)
+    assert ragged.walk_steps(np.zeros((1, 1, 128), np.int32), G, pairs) == 0
     for rows in (0, 1, 16 * G - 1, 16 * G, 16 * G + 1, 100 * G):
         want = -(-rows // (16 * G)) * 16 * G
         assert ragged.walk_rows(rows, G) == want
