@@ -12,7 +12,9 @@ and full mode: `_full_rows_for` with its kernel-score guard (l.802),
 `full_arrays_from_ends` (l.904) and `search_top_k` (l.943), which run the
 score+ends pass and then the traceback of `ops.traceback` (T1, T2).
 
-Routing is decided before any launch and never after a failure:
+Routing is decided before any launch and never after a failure;
+`kernel_route` draws the kernels' domain for the engine and for
+`parallel`'s sharded entry points alike:
 
 - calls inside the reference's kernel predicate (matrix entries within
   +-256 and the exact-value domain of `_fp32_exact_domain`, which also
@@ -52,6 +54,7 @@ cache hits and misses.
 from __future__ import annotations
 
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -489,6 +492,45 @@ def _ragged_packed_cap(algorithm, with_ends, gap_open, gap_extend, m_abs,
     return None
 
 
+class KernelRoute(NamedTuple):
+    """A call's queries by route (`kernel_route`), as indices into its
+    query list in input order."""
+
+    safe_pad: bool  # the matrix leaves pad symbol 31 unused
+    m_abs: int  # the matrix's largest absolute entry (the packed caps)
+    kernel: list  # inside the domain, admitted by `ragged.supports`
+    long: list  # inside the domain, refused by `ragged.supports`
+    sweep: list  # nonempty, outside the domain
+    empty: list  # no residues
+
+
+def kernel_route(database, start, end, queries_enc, matrix, gap_open,
+                 gap_extend, algorithm, with_ends) -> KernelRoute:
+    """The kernels' domain, for every entry point (`search_scores_batch`,
+    `parallel.align_arrays_sharded`, `parallel.align_top_k_sharded`).
+
+    A call is inside the domain when its matrix entries are within
+    +-256 and `_fp32_exact_domain` holds (the reference's predicate);
+    ``safe_pad`` holds when the matrix has at most 31 columns, so that
+    the pad symbol 31 scores `ragged.PAD_SCORE` for every query row."""
+    m_abs = int(np.abs(matrix).max(initial=0))
+    inside = m_abs <= 256 and _fp32_exact_domain(
+        database, start, end, queries_enc, matrix, gap_open, gap_extend
+    )
+    safe_pad = matrix.shape[1] <= 31
+    route = KernelRoute(safe_pad, m_abs, [], [], [], [])
+    for i, q in enumerate(queries_enc):
+        if q.shape[0] == 0:
+            route.empty.append(i)
+        elif not inside:
+            route.sweep.append(i)
+        elif ragged.supports(q.shape[0], algorithm, with_ends, safe_pad):
+            route.kernel.append(i)
+        else:
+            route.long.append(i)
+    return route
+
+
 def search_scores_batch(
     database,
     start: int,
@@ -516,66 +558,45 @@ def search_scores_batch(
 
     queries_enc = [np.asarray(q, dtype=np.uint8) for q in queries_enc]
     with span("pyopal.route"):
-        m_abs = int(np.abs(matrix).max(initial=0))
-        use_kernels = (
-            m_abs <= 256
-            and _fp32_exact_domain(
-                database, start, end, queries_enc, matrix, gap_open,
-                gap_extend,
-            )
+        route = kernel_route(
+            database, start, end, queries_enc, matrix, gap_open,
+            gap_extend, algorithm, with_ends,
         )
-        # pad symbol 31 scores PAD for every query row iff the alphabet
-        # leaves profile column 31 unused
-        safe_pad = matrix.shape[1] <= 31
-        kernel_ok = [
-            use_kernels
-            and ragged.supports(q.shape[0], algorithm, with_ends, safe_pad)
-            for q in queries_enc
-        ]
-        long_idx = [
-            i for i, q in enumerate(queries_enc)
-            if use_kernels and q.shape[0] > 0 and not kernel_ok[i]
-        ]
 
     with span("pyopal.scatter"):
         scores = np.zeros((nq, n), dtype=np.int32)
         q_ends = np.full((nq, n), -1, dtype=np.int32)
         t_ends = np.full((nq, n), -1, dtype=np.int32)
 
-    dev_idx = [i for i, ok in enumerate(kernel_ok) if ok]
-    if dev_idx:
+    if route.kernel:
         s, qe, te = _search_batch_kernels(
-            database, start, end, [queries_enc[i] for i in dev_idx],
+            database, start, end, [queries_enc[i] for i in route.kernel],
             matrix, gap_open, gap_extend, algorithm, with_ends, device,
-            safe_pad, m_abs,
+            route.safe_pad, route.m_abs,
         )
         with span("pyopal.scatter"):
-            for k, i in enumerate(dev_idx):
+            for k, i in enumerate(route.kernel):
                 scores[i], q_ends[i], t_ends[i] = s[k], qe[k], te[k]
 
-    for i in long_idx:
+    for i in route.long:
         scores[i], q_ends[i], t_ends[i] = _search_long_kernels(
             database, start, end, queries_enc[i], matrix, gap_open,
-            gap_extend, algorithm, with_ends, device, safe_pad, m_abs,
+            gap_extend, algorithm, with_ends, device, route.safe_pad,
+            route.m_abs,
         )
 
-    sweep_idx = [
-        i for i, q in enumerate(queries_enc)
-        if not use_kernels and q.shape[0] > 0
-    ]
-    if sweep_idx:
+    if route.sweep:
         blocks = _search_batch_sweep(
-            database, start, end, [queries_enc[i] for i in sweep_idx],
+            database, start, end, [queries_enc[i] for i in route.sweep],
             matrix, gap_open, gap_extend, algorithm, device,
         )
-        for i, block in zip(sweep_idx, blocks):
+        for i, block in zip(route.sweep, blocks):
             scores[i], q_ends[i], t_ends[i] = block
 
-    for i, q in enumerate(queries_enc):
-        if q.shape[0] == 0:
-            scores[i], q_ends[i], t_ends[i] = _empty_query_results(
-                database, start, end, gap_open, gap_extend, algorithm
-            )
+    for i in route.empty:
+        scores[i], q_ends[i], t_ends[i] = _empty_query_results(
+            database, start, end, gap_open, gap_extend, algorithm
+        )
     return scores, q_ends, t_ends
 
 

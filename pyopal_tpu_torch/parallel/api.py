@@ -40,7 +40,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..aligner import Aligner, _clamp_slice
-from ..ops import engine, packing, q8, ragged
+from ..ops import engine, packing, q8
 from . import sharded_flat as sfm
 from .mesh import device_mesh
 
@@ -168,24 +168,14 @@ def align_arrays_sharded(
                 out["cigars"] = np.empty((nq, n), dtype=object)
             return out
 
-        # the kernels' predicate, as in the single-device engine; an
-        # alphabet has at most 27 letters, so ``safe_pad`` holds (K1, K2)
-        use_mesh = (
-            np.abs(matrix).max(initial=0) <= 256
-            and matrix.shape[1] <= 31
-            and engine._fp32_exact_domain(
-                database, start, end, queries_enc, matrix, gap_open,
-                gap_extend,
-            )
+        # the shards launch K1 and K2 with ``safe_pad``: without it (a
+        # 32-column matrix) every query takes the fallback
+        route = engine.kernel_route(
+            database, start, end, queries_enc, matrix, gap_open,
+            gap_extend, algorithm, with_ends,
         )
-        mesh_ok = [
-            use_mesh
-            and ragged.supports(q.shape[0], algorithm, with_ends,
-                                safe_pad=True)
-            for q in queries_enc
-        ]
-        mesh_idx = [i for i, ok in enumerate(mesh_ok) if ok]
-        fb_idx = [i for i, ok in enumerate(mesh_ok) if not ok]
+        mesh_idx = route.kernel if route.safe_pad else []
+        fb_idx = sorted(set(range(nq)).difference(mesh_idx))
 
         scores = np.zeros((nq, n), dtype=np.int32)
         q_ends = np.full((nq, n), -1, dtype=np.int32)
@@ -236,7 +226,7 @@ def align_arrays_sharded(
                 s, qe, te = sfm.sharded_search_flat(
                     mesh, profs, qlens, _pack(sfm.LANES), gap_open,
                     gap_extend, algorithm, with_ends=with_ends,
-                    safe_pad=True, m_abs=int(np.abs(matrix).max(initial=0)),
+                    safe_pad=True, m_abs=route.m_abs,
                 )
                 _store(
                     [(row, mesh_idx[qi]) for row, qi in enumerate(v2_idx)],
@@ -362,7 +352,6 @@ def align_top_k_sharded(
     local_shards = sfm.local_shards_of_mesh(mesh)
     home = mesh.devices[local_shards[0]]
     matrix = aligner.scoring_matrix.int_data()
-    safe_pad = matrix.shape[1] <= 31
 
     queries_enc = [
         np.frombuffer(database.alphabet.encode(q), dtype=np.uint8)
@@ -377,19 +366,13 @@ def align_top_k_sharded(
         if nq == 0 or n == 0 or k == 0:
             return out
 
-        use_mesh = np.abs(matrix).max(
-            initial=0
-        ) <= 256 and engine._fp32_exact_domain(
-            database, start, end, queries_enc, matrix, gap_open, gap_extend,
+        # the shards take K4/K5 where ``safe_pad`` fails
+        route = engine.kernel_route(
+            database, start, end, queries_enc, matrix, gap_open,
+            gap_extend, algorithm, True,
         )
-        mesh_ok = [
-            use_mesh
-            and q.shape[0] > 0
-            and ragged.supports(q.shape[0], algorithm, True, safe_pad=safe_pad)
-            for q in queries_enc
-        ]
-        mesh_idx = [i for i, ok in enumerate(mesh_ok) if ok]
-        fb_idx = [i for i, ok in enumerate(mesh_ok) if not ok]
+        mesh_idx = route.kernel
+        fb_idx = sorted(set(range(nq)).difference(mesh_idx))
 
         if mesh_idx:
             sf = _pack_sharded_cached(
@@ -401,20 +384,18 @@ def align_top_k_sharded(
             gidx = sfm._gidx_device(sf, mesh)
 
             # tier cohorts (one kernel launch per distinct Q_pad a shard)
-            cohorts: dict = {}
-            for i in mesh_idx:
-                tier = ragged.profile_qpad(max(len(queries_enc[i]), 8))
-                cohorts.setdefault(tier, []).append(i)
-
-            for tier in sorted(cohorts):
-                qidx = cohorts[tier]
-                cohort = [queries_enc[i] for i in qidx]
+            mesh_queries = [queries_enc[i] for i in mesh_idx]
+            for _, _, _, v2_idx in engine.plan_tier_launches(
+                mesh_queries, safe_pad=False
+            ):
+                qidx = [mesh_idx[j] for j in v2_idx]
+                cohort = [mesh_queries[j] for j in v2_idx]
                 profs, qlens = engine._profiles_for_cohort(
                     cohort, matrix, home
                 )
                 outs = sfm.sharded_search_flat_device(
                     mesh, profs, qlens, sf, gap_open, gap_extend, algorithm,
-                    with_ends=True, safe_pad=safe_pad,
+                    with_ends=True, safe_pad=route.safe_pad,
                 )
                 m = max(1, min(k, max(shard_counts)))
                 pending = list(range(len(qidx)))

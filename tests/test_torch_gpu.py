@@ -19,6 +19,7 @@ from pyopal_tpu_torch.matrices import ScoringMatrix
 from pyopal_tpu_torch.ops import (
     group, naive, packing, q8, ragged, ragged_long, traceback,
 )
+import _torch_cpu  # noqa: F401  (torch threads: a worker's share)
 
 pytestmark = pytest.mark.cuda
 

@@ -18,6 +18,7 @@ import pyopal_tpu_torch as pt
 from pyopal_tpu.matrices import _TABLES
 from pyopal_tpu.ops import packing as ref_packing
 from pyopal_tpu_torch.ops import packing
+import _torch_cpu  # torch threads: a worker's share, also for subprocesses
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -145,7 +146,7 @@ def test_import_leaves_jax_out():
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True,
-        text=True, check=True,
+        text=True, check=True, env=_torch_cpu.subprocess_env(),
     )
     assert out.stdout.strip() == "False"
 

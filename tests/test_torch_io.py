@@ -15,6 +15,7 @@ import pyopal_tpu as po
 import pyopal_tpu_torch as pt
 from pyopal_tpu import io as ref_io
 from pyopal_tpu_torch import io
+import _torch_cpu  # noqa: F401  (torch threads: a worker's share)
 
 FASTA = b"""\
 >seq1 first sequence

@@ -23,6 +23,7 @@ import pyopal_tpu_torch as pt
 from pyopal_tpu.native import _encoder as ref_encoder
 from pyopal_tpu_torch import alphabet, io, native, results
 from pyopal_tpu_torch.native import _encoder
+import _torch_cpu  # torch threads: a worker's share, also for subprocesses
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -152,7 +153,7 @@ def test_pickle_loads_in_a_fresh_process_without_jax():
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, input=pickle.dumps(hits),
-        capture_output=True, check=True,
+        capture_output=True, check=True, env=_torch_cpu.subprocess_env(),
     )
     modules, text, jax_loaded = out.stdout.decode().splitlines()
     assert modules == str([

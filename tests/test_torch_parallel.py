@@ -42,6 +42,7 @@ from pyopal_tpu_torch.parallel import (
     sharded as sh,
     sharded_flat as sfm,
 )
+import _torch_cpu  # torch threads: a worker's share, also for subprocesses
 
 AMINO = "ARNDCQEGHILKMFPSTWYV"
 ALGOS = ["nw", "hw", "ov", "sw"]
@@ -501,7 +502,7 @@ def test_two_process_gloo_matches_single_process(tmp_path):
                                 mode="end", mesh=_mesh4())
     want_top = align_top_k_sharded(MP_QUERIES[:2], pt.Database(MP_TARGETS),
                                    k=7, mesh=_mesh4())
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = _torch_cpu.subprocess_env(JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = os.pathsep.join(

@@ -16,6 +16,7 @@ from pyopal_tpu.matrices import ScoringMatrix
 from pyopal_tpu.ops import packing as ref_packing
 from pyopal_tpu.ops import pallas_q8 as ref_q8
 from pyopal_tpu_torch.ops import q8, ragged
+import _torch_cpu  # noqa: F401  (torch threads: a worker's share)
 
 S = ScoringMatrix.from_name("BLOSUM50").int_data()
 

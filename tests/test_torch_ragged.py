@@ -18,6 +18,7 @@ from pyopal_tpu.matrices import ScoringMatrix
 from pyopal_tpu.ops import packing as ref_packing
 from pyopal_tpu.ops import pallas_ragged as pr
 from pyopal_tpu_torch.ops import engine, ragged
+import _torch_cpu  # noqa: F401  (torch threads: a worker's share)
 
 S = ScoringMatrix.from_name("BLOSUM50").int_data()
 B62 = ScoringMatrix.from_name("BLOSUM62").int_data()

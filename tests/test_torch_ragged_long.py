@@ -33,6 +33,7 @@ from pyopal_tpu.ops import packing as ref_packing
 from pyopal_tpu.ops import pallas_ragged as pr
 from pyopal_tpu.ops import pallas_ragged_long as prl
 from pyopal_tpu_torch.ops import ragged, ragged_long, sweep
+import _torch_cpu  # noqa: F401  (torch threads: a worker's share)
 
 S = ScoringMatrix.from_name("BLOSUM50").int_data()
 ALGOS = ["nw", "hw", "ov", "sw"]

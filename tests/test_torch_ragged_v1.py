@@ -26,6 +26,7 @@ from pyopal_tpu.matrices import ScoringMatrix
 from pyopal_tpu.ops import packing as ref_packing
 from pyopal_tpu.ops import pallas_ragged as pr
 from pyopal_tpu_torch.ops import ragged
+import _torch_cpu  # noqa: F401  (torch threads: a worker's share)
 
 S = ScoringMatrix.from_name("BLOSUM50").int_data()
 ALGOS = ["nw", "hw", "ov", "sw"]

@@ -6,6 +6,7 @@ kernels do not take a call); every result must equal the reference
 package's exactly.
 """
 
+import itertools
 import pickle
 import random
 
@@ -17,6 +18,7 @@ import pyopal_tpu_torch as pt
 from pyopal_tpu.ops import engine as ref_engine
 from pyopal_tpu_torch import convert
 from pyopal_tpu_torch.ops import engine, naive, q8, ragged, ragged_long, sweep
+import _torch_cpu  # noqa: F401  (torch threads: a worker's share)
 
 
 def _case(seed):
@@ -531,3 +533,84 @@ def test_q8_groups_take_the_packed_walk_in_sw_score_mode(seed, packed):
                 else "q8.groups_wide")
         assert {k: v for k, v in counted.items() if k.startswith("q8.")} == {
             walk: 2}
+
+
+B50 = pt.ScoringMatrix.from_name("BLOSUM50").int_data()
+ROUTE_MATRICES = {
+    "BLOSUM50": B50,
+    "32 columns": np.pad(B50, ((0, 8), (0, 8))),
+    "entry 300": np.where(np.eye(24, dtype=bool), 300, B50),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROUTE_MATRICES))
+@pytest.mark.parametrize("past_fp32", [False, True])
+def test_kernel_route_partitions_as_before(name, past_fp32):
+    """`engine.kernel_route` splits queries as the engine, the sharded
+    search and the sharded top-k each did with their own predicate
+    (frozen here), over matrices, gaps, modes and query lengths around
+    `ragged.supports`' limits; with ``past_fp32`` the slice holds a
+    target long enough that `_fp32_exact_domain` fails."""
+    matrix = ROUTE_MATRICES[name]
+    # 1.2 M residues: span x 15 alone passes 2**24
+    db = pt.Database(["ACDEF", "W" * 300, "A" * 1_200_000])
+    start, end = 0, 3 if past_fp32 else 2
+    rng = np.random.default_rng(7)
+    queries = [rng.integers(0, 20, n).astype(np.uint8)
+               for n in (4097, 0, 1, 5000, 4096, 1, 0)]
+
+    def old_engine(go, ge, algo, with_ends):
+        use = np.abs(matrix).max(initial=0) <= 256 and (
+            engine._fp32_exact_domain(db, start, end, queries, matrix, go,
+                                      ge))
+        safe_pad = matrix.shape[1] <= 31
+        ok = [use and ragged.supports(q.shape[0], algo, with_ends, safe_pad)
+              for q in queries]
+        return (
+            safe_pad,
+            [i for i, k in enumerate(ok) if k],
+            [i for i, q in enumerate(queries)
+             if use and q.shape[0] > 0 and not ok[i]],
+            [i for i, q in enumerate(queries) if not use and q.shape[0] > 0],
+            [i for i, q in enumerate(queries) if q.shape[0] == 0],
+        )
+
+    def old_sharded(go, ge, algo, with_ends):
+        use_mesh = (
+            np.abs(matrix).max(initial=0) <= 256
+            and matrix.shape[1] <= 31
+            and engine._fp32_exact_domain(db, start, end, queries, matrix,
+                                          go, ge)
+        )
+        return [i for i, q in enumerate(queries) if use_mesh
+                and ragged.supports(q.shape[0], algo, with_ends, True)]
+
+    def old_top_k(go, ge, algo):
+        safe_pad = matrix.shape[1] <= 31
+        use_mesh = np.abs(matrix).max(initial=0) <= 256 and (
+            engine._fp32_exact_domain(db, start, end, queries, matrix, go,
+                                      ge))
+        return [i for i, q in enumerate(queries) if use_mesh
+                and q.shape[0] > 0
+                and ragged.supports(q.shape[0], algo, True, safe_pad)]
+
+    seen = set()
+    with db.lock.read:
+        for (go, ge), algo, with_ends in itertools.product(
+            [(3, 1), (12, 2), (-1, 2), (0, 0)], ["sw", "nw"],
+            [False, True],
+        ):
+            route = engine.kernel_route(db, start, end, queries, matrix, go,
+                                        ge, algo, with_ends)
+            assert route.m_abs == np.abs(matrix).max()
+            assert (route.safe_pad, route.kernel, route.long, route.sweep,
+                    route.empty) == old_engine(go, ge, algo, with_ends)
+            mesh = route.kernel if route.safe_pad else []
+            assert mesh == old_sharded(go, ge, algo, with_ends)
+            if with_ends:
+                assert route.kernel == old_top_k(go, ge, algo)
+            seen.update(k for k in ("kernel", "long", "sweep")
+                        if getattr(route, k))
+    # every case reaches the routes its matrix and slice allow
+    inside = name != "entry 300" and not past_fp32
+    assert seen == ({"kernel", "long", "sweep"} if inside else {"sweep"})

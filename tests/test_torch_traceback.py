@@ -26,6 +26,7 @@ from pyopal_tpu_torch.models import ALGORITHMS
 from pyopal_tpu_torch.ops import engine, naive
 from pyopal_tpu_torch.ops import traceback as tb
 from pyopal_tpu_torch.results import OP_DEL, OP_INS, OP_MATCH, cigar_string
+import _torch_cpu  # noqa: F401  (torch threads: a worker's share)
 
 ALGOS = ["nw", "hw", "ov", "sw"]
 S = ScoringMatrix.from_name("BLOSUM50").int_data()

@@ -17,6 +17,7 @@ import pyopal_tpu_torch as pt
 from pyopal_tpu_torch._align import _chunk_bounds
 from pyopal_tpu_torch.ops import engine, packing, q8, ragged, ragged_long
 from pyopal_tpu_torch.utils import profiling
+import _torch_cpu  # noqa: F401  (torch threads: a worker's share)
 
 LETTERS = "ARNDCQEGHILKMFPSTWYV"
 STAGES = {

@@ -5,10 +5,12 @@ the JAX package's.
 import ast
 import inspect
 import json
+import os
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import pyopal_tpu as po
 import pyopal_tpu_torch as pt
@@ -16,6 +18,7 @@ from pyopal_tpu.utils import profiling as ref_profiling
 from pyopal_tpu_torch import parallel
 from pyopal_tpu_torch.ops import _cuda, ragged
 from pyopal_tpu_torch.utils import profiling
+import _torch_cpu  # noqa: F401  (torch threads: a worker's share)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -147,3 +150,17 @@ def test_stubs_match_signatures(stub, module):
 def test_stubs_ship_with_the_package():
     for path in ("py.typed", "__init__.pyi", "parallel/__init__.pyi"):
         assert (REPO / "pyopal_tpu_torch" / path).is_file()
+
+
+def test_port_tests_pin_torch_threads():
+    """This worker runs torch on its share of the CPU, and every port test
+    file imports `_torch_cpu`, the module that pins it, at its top."""
+    workers = max(1, int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+    assert torch.get_num_threads() <= max(1, os.cpu_count() // workers)
+    files = sorted((REPO / "tests").glob("test_torch_*.py"))
+    assert len(files) > 10
+    for path in files:
+        tree = ast.parse(path.read_text(), str(path))
+        names = {alias.name for node in tree.body
+                 if isinstance(node, ast.Import) for alias in node.names}
+        assert "_torch_cpu" in names, path.name

@@ -50,8 +50,11 @@ different threads, passes and columns.  The interpreted reference
 kernels compile once per algorithm, mode and gap pair (~1 s for K1 at
 ``unroll=1``, ~3 s for K3), so each K1 case makes one reference call
 with every query in it, and K3 calls the reference in the cases of
-`K3_REF` only; the file takes about three minutes on one CPU process,
-half of it K4's and K6's cases.
+`K3_REF` only.  The file takes about five minutes in one process on
+eight CPUs, and about as long on one of tier-1's six xdist workers
+because `_torch_cpu` pins each worker's torch to its share of the CPUs:
+unpinned, six workers' eight-thread OpenMP pools fight over the
+emulations' thousands of tiny ops, and the file took 21 minutes.
 """
 
 import functools
@@ -69,6 +72,7 @@ from pyopal_tpu.ops import pallas_q8 as pq8
 from pyopal_tpu.ops import pallas_ragged as pr
 from pyopal_tpu.ops import pallas_ragged_long as prl
 from pyopal_tpu_torch.ops import group, q8, ragged, ragged_long
+import _torch_cpu  # noqa: F401  (torch threads: a worker's share)
 
 S = ScoringMatrix.from_name("BLOSUM50").int_data()
 ALGOS = ["nw", "hw", "ov", "sw"]

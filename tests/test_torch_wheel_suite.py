@@ -20,6 +20,7 @@ from pyopal_tpu_torch.tests.test_result import (
     TestScoreResult,
 )
 from pyopal_tpu_torch.tests.test_smoke import TestContainers, TestGolden
+import _torch_cpu  # noqa: F401  (torch threads: a worker's share)
 
 __all__ = [
     "TestAlign",
